@@ -1,7 +1,7 @@
 // Native OBJ parser for raytracercuda_tpu.
 //
 // Role parity: the reference's model import is native code (Assimp behind
-// TestProgram/Model.cpp).  This is the TPU framework's native data-loader:
+// TestProgram/Model.cpp).  This is the framework's native data-loader:
 // a single-pass OBJ tokenizer exposed through a C ABI consumed via ctypes
 // (no pybind11 in this image).  The Python fallback parser implements the
 // same grammar; tests compare the two.

@@ -1,12 +1,12 @@
-"""raytracercuda_tpu — a TPU-native differentiable ray-tracing framework.
+"""raytracercuda_tpu — a differentiable ray-tracing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the CUDA
-reference ray tracer d1kkop/RaytracerCuda (`/root/reference`, surveyed in
+A from-scratch JAX/XLA framework with the capabilities of the CUDA
+reference ray tracer d1kkop/RaytracerCuda (surveyed in
 SURVEY.md): triangle-mesh scenes with 10-slot vertex attributes, OBJ/MTL/BMP
 content loading, pinhole cameras, deterministic on-device acceleration
-structures (LBVH, hashed grid), stackless Pallas/XLA traversal kernels,
+structures (LBVH, hashed grid, Morton clusters), stackless traversal,
 full-frame test kernels, normal/Lambert/textured shading — differentiable
-end-to-end and sharded over TPU meshes.
+end-to-end and sharded over device meshes.
 
 Public API parity map (reference `Raytracer/Beam.h`):
   IRenderTarget -> models.render_target.RenderTarget

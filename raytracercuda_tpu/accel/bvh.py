@@ -1,11 +1,11 @@
 """LBVH construction: Morton codes -> sort -> Karras linking -> refit ->
 stackless skip-link threading.
 
-This is the TPU-native replacement for BOTH of the reference's acceleration
+This is the deterministic replacement for BOTH of the reference's acceleration
 builders: the atomicCAS kd-tree (`Raytracer/BuildTree.cu:7-61,154-256`) and
 the Fletcher16 hash grid (`Raytracer/Hash.cu:132-178`).  Their lock-free
 concurrent insertion (bmStore bump allocators with accepted memory leaks,
-`CudaComon.cuh:268-291`, `BuildTree.cu:13-17`) has no TPU analog and is
+`CudaComon.cuh:268-291`, `BuildTree.cu:13-17`) is
 deliberately NOT reproduced: construction here is a deterministic
 sort/scan pipeline (quantize -> Morton -> radix sort -> Karras 2012 internal
 node linking -> bottom-up AABB refit), which is reproducible, rebuilt per
@@ -57,7 +57,7 @@ class Bvh(NamedTuple):
           < 0 -> leaf, value = -(first*LEAF_PACK + count) - 2,
       [1] skip link (-1 terminates).
       Links are a SEPARATE int array on purpose: bitcasting them into
-      float rows corrupts them on TPU (NaN canonicalization rewrites the
+      float rows can corrupt them (NaN canonicalization rewrites the
       0xFFFFFFFF pattern of -1, and denormal flush zeroes small links).
 
     ``packed_tris [F+LEAF_PACK,9]`` float32 — triangle vertices PRE-SORTED in Morton
@@ -156,8 +156,8 @@ def _karras_ranges(codes: jnp.ndarray):
 
     # The query side of every LCP probe is node i = arange(n-1), so its
     # codes are a SLICE, not a gather — this halves the data-dependent
-    # gather count of the three searches (measured 31 -> ~17 ms of the
-    # bunny build; the probes' cj gathers are the irreducible remainder).
+    # gather count of the three searches (the probes' cj gathers are the
+    # irreducible remainder).
     ci_all = codes[: n - 1]
 
     def delta(i, j):
@@ -180,11 +180,9 @@ def _karras_ranges(codes: jnp.ndarray):
     def delta3(m1, m2, m3):
         """delta(i, i + m*d) for three probe distances in ONE gather.
 
-        Every search round costs one data-dependent gather launch (the
-        dominant cost of the whole build: ~0.6 ms each on this chip, for
-        a 278 KB table — pure launch overhead).  Batching a round's
-        probes into one [3(n-1)] gather halves the launch count vs
-        classic radix-2."""
+        Every search round costs one data-dependent gather launch.
+        Batching a round's probes into one [3(n-1)] gather halves the
+        launch count vs classic radix-2."""
         m = jnp.stack([m1, m2, m3])  # [3, n-1]
         j = i[None, :] + m * d[None, :]
         valid = (j >= 0) & (j < n)
@@ -248,8 +246,7 @@ def build_bvh(positions: jnp.ndarray, faces: jnp.ndarray, cfg: BvhConfig = BvhCo
     reset+insert rebuild (`SceneTree.cpp:70-91`).
     """
     num_faces = faces.shape[0]
-    # One [3F] corner gather instead of three [F] gathers (each 1-D
-    # gather launch costs ~fixed overhead on TPU).
+    # One [3F] corner gather instead of three [F] gathers.
     corners = positions[faces[:, :3].reshape(-1)].reshape(num_faces, 3, 3)
     v0, v1, v2 = corners[:, 0], corners[:, 1], corners[:, 2]
     tri_min = jnp.minimum(v0, jnp.minimum(v1, v2))

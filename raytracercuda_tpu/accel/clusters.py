@@ -1,33 +1,28 @@
 """Morton-ordered triangle clusters: the dense (matrix-form) acceleration
-structure behind the TPU fast path.
+structure behind the CLUSTER fast path.
 
 The reference accelerates rays with pointer trees walked one node per
-thread-step (`Raytracer/BuildTree.cu:367-499`).  A TPU wants the opposite
-shape: *dense rectangular work*.  This module builds the structure that
-makes that possible:
+thread-step (`Raytracer/BuildTree.cu:367-499`).  This module builds a
+structure for the opposite shape, *dense rectangular work*:
 
   * Triangles are sorted by the Morton code of their centroid (the same
     quantize-and-order idea as the reference's spatial hash,
     `Raytracer/Hash.cu:17-63`, minus the lossy Fletcher16 step) and grouped
     into fixed-size clusters of ``cluster_size`` consecutive triangles.
   * Each cluster's AABB comes from a single reshape-reduction — the entire
-    "build" is sort + reshape + min/max, a few hundred microseconds where
-    the reference spends 51.7 ms of atomicCAS tree insertion
-    (`/root/reference/aa.xml` row 3).
+    "build" is sort + reshape + min/max, where the reference spends
+    51.7 ms of atomicCAS tree insertion (`aa.xml` row 3, GTX 660 Ti).
   * Per-triangle Möller–Trumbore constants are precomputed in a layout that
     turns the inner intersection loop into MATRIX MULTIPLIES (see
     `trace/dense.py`): for rays sharing an origin (a pinhole frame) or a
     direction (a directional-light shadow pass), ``(det, u·det, v·det)``
     are *linear* in the per-ray vector, so a ray tile tests a candidate
-    cluster with one ``[R,3] @ [3, 3·L]`` contraction on the MXU plus a
-    handful of VPU compare ops — instead of 60 scalar FLOPs of divergent
-    branchy code per (ray, triangle) pair.
+    cluster with one ``[R,3] @ [3, 3·L]`` contraction plus a handful of
+    elementwise compare ops.
 
-Cluster AABBs are deliberately a *flat* level (no tree): culling a
-``[tiles, clusters]`` rectangle densely is faster on this hardware than
-chasing any pointer structure until scenes reach millions of triangles
-(at 1M triangles the rectangle is ~64M lane-ops — still microseconds-scale
-VPU work).  `trace/dense.py` chunks the rectangle when it outgrows memory.
+Cluster AABBs are deliberately a *flat* level (no tree): the
+``[tiles, clusters]`` rectangle is culled densely.  `trace/dense.py`
+chunks the rectangle when it outgrows memory.
 """
 
 from __future__ import annotations
@@ -65,17 +60,6 @@ class ClusterSet(NamedTuple):
     normal: jnp.ndarray
     #: [C*L] int32 — original face id per sorted slot (-1 for padding).
     face_order: jnp.ndarray
-    #: [C, 16, L] float32 or None — component-major v0|e1|e2 blocks for the
-    #: Pallas tile-sweep kernels (`pallas_sweep.segment_blocks` layout),
-    #: cached here when L is lane-aligned so frames never rebuild them
-    #: (r2 advisor finding: the pipeline re-materialized them per trace).
-    tri_blocks: jnp.ndarray | None = None
-    #: [F] int32 or None — inverse of ``face_order``: original face id ->
-    #: Morton-sorted slot.  The differentiable route keys its backward
-    #: scatter windows on slot space (pixel tiles hit Morton-contiguous
-    #: slots; see `diff/scatter.py`), so the inverse permutation is
-    #: computed once at build time.
-    face_rank: jnp.ndarray | None = None
 
     @property
     def num_clusters(self) -> int:
@@ -136,14 +120,8 @@ def build_clusters(
     cmax = padded(tri_max[order], -jnp.inf).reshape(num_clusters, L, 3).max(axis=1)
 
     tris = jnp.concatenate([sv0, sv1, sv2], axis=-1)
-    tri_blocks = None
-    if L % 128 == 0:  # lane-aligned: cache the Pallas kernel operand
-        edges = jnp.concatenate([sv0, sv1 - sv0, sv2 - sv0], axis=-1)
-        tri_blocks = jnp.pad(edges.transpose(0, 2, 1),
-                             ((0, 0), (0, 7), (0, 0)))
     return ClusterSet(cmin=cmin, cmax=cmax, tris=tris, normal=normal,
-                      face_order=face_order, tri_blocks=tri_blocks,
-                      face_rank=jnp.argsort(order).astype(jnp.int32))
+                      face_order=face_order)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Hashed uniform-grid acceleration structure — deterministic CSR build.
 
-TPU-native equivalent of the reference's spatial-hash backend
+Equivalent of the reference's spatial-hash backend
 (`Raytracer/Hash.cu`, `SceneHash.cpp`): points/triangles quantize to
 0.03-sized cells, each cell hashes to one of 65,536 buckets by a
 per-coordinate Fletcher16 checksum summed mod 65,536 (`Hash.cu:17-54`),

@@ -4,8 +4,8 @@ The reference's CPU build path dumps tree quality after every build:
 leaf-depth histogram, faces/leaf, store-top counters
 (`/root/reference/Raytracer/BuildTree.cu:307-360`) and hash-cell
 occupancy (`Hash.cu:223-228`).  This module is that capability for the
-TPU structures: per-structure `*_stats` returning a plain dict of
-host-side numbers (suitable for printing or MEASUREMENTS.md), plus
+framework's structures: per-structure `*_stats` returning a plain dict
+of host-side numbers (suitable for printing or PERF.md), plus
 cluster traversal-length statistics on a probe frame — the watch item
 SURVEY.md §7 flagged for LBVH object splits (traversal tails) made
 measurable.

@@ -1,7 +1,7 @@
 """Input-driven fly-camera frame loop — the reference TestProgram's
 interactive loop (`TestProgram/Program.cpp:196-263` SDL poll, WASD/QE +
 mouse -> pose; `Program.cpp:302-311` render-target rotation over NUM_RT)
-with the input stream made SCRIPTABLE: no display exists on a TPU host,
+with the input stream made SCRIPTABLE: without a display,
 so events come from a replay file (or live stdin lines), and frames go
 to PNGs.  Per-frame semantics mirror the reference exactly:
 

@@ -1,8 +1,8 @@
 """Viewer-less render CLI — the TestProgram replacement.
 
 The reference's app (`TestProgram/Program.cpp`) opens an SDL window, flies
-a WASD camera and blits frames through CUDA-GL interop.  On a TPU pod
-there is no display: this CLI renders N frames of an orbit/fly path to
+a WASD camera and blits frames through CUDA-GL interop.  Without a
+display, this CLI renders N frames of an orbit/fly path to
 PNG files, with the same per-phase profiler output (Scene/Trace/...)
 the reference prints once per second.
 
@@ -48,7 +48,8 @@ def main(argv=None) -> int:
     from raytracercuda_tpu import (
         AccelKind, Camera, RenderConfig, RenderTarget, Scene,
     )
-    from raytracercuda_tpu.models.camera import orient_from_pan_pitch
+    from raytracercuda_tpu.models.camera import (framing_eye,
+                                                 orient_from_pan_pitch)
     from raytracercuda_tpu.models.loader import load_model
     from raytracercuda_tpu.utils import content
     from raytracercuda_tpu.utils.png import write_packed_png
@@ -71,12 +72,8 @@ def main(argv=None) -> int:
         scene.update_gpu_scene()  # build acceleration structure
 
     # Auto-frame: back the eye off the AABB like the bench does.
-    lo = np.asarray(data.positions.min(axis=0))
-    hi = np.asarray(data.positions.max(axis=0))
-    center, extent = (lo + hi) / 2, float(np.max(hi - lo))
-    eye = np.asarray(args.eye, np.float32) if args.eye else (
-        center - np.array([0, 0, 2.0 * extent])
-    ).astype(np.float32)
+    eye = np.asarray(args.eye if args.eye else framing_eye(data.positions),
+                     np.float32)
 
     cam = Camera.create()
     err = cam.set_initial_rays(args.size, args.size, -1, 1, -1, 1, args.zoom)
@@ -88,11 +85,9 @@ def main(argv=None) -> int:
     shading = args.shading
 
     # Product fast path: cluster accel + lambert shading renders through
-    # FrameRenderer — the same staged frame bench.py measures (fused
-    # Pallas kernels on TPU, XLA dense elsewhere).
+    # FrameRenderer — the same frame bench.py measures.
     renderer = None
-    if (args.accel == "cluster" and shading != "parity"
-            and args.size % config.trace.dense_tile_px == 0):
+    if args.accel == "cluster" and shading != "parity":
         from raytracercuda_tpu.trace.frame import FrameRenderer
 
         renderer = FrameRenderer(

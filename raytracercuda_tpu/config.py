@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU ray-tracing framework.
+"""Runtime configuration for the ray-tracing framework.
 
 This replaces the reference's compile-time flag layer (`Raytracer/Types.h:8-13`:
 ``#define CUDA 0/1`` and ``TREE_TYPE TREE|HASH|PROGRESSIVE``) and the kernel
@@ -17,10 +17,10 @@ class AccelKind(enum.Enum):
     """Acceleration-structure selector.
 
     Mirrors the reference's ``TREE_TYPE`` compile-time selector
-    (`Raytracer/Types.h:10-13`), re-expressed TPU-first:
+    (`Raytracer/Types.h:10-13`):
 
     - ``BVH``:     LBVH over flattened, stackless (skip-link) node arrays —
-                   the TPU-native replacement for the atomic kd-tree
+                   the deterministic replacement for the atomic kd-tree
                    (`Raytracer/BuildTree.cu`).
     - ``GRID``:    Fletcher16 hashed uniform grid, CSR face lists — the
                    deterministic replacement for the spatial hash
@@ -29,8 +29,8 @@ class AccelKind(enum.Enum):
                    completes the reference's unfinished "PROGRESSIVE" path
                    (`Raytracer/Trace2.cu`).
     - ``CLUSTER``: Morton-ordered flat triangle clusters culled DENSELY
-                   (matrix form) against pixel-tile beams — the fastest
-                   TPU path; see `accel/clusters.py` and `trace/dense.py`.
+                   (matrix form) against pixel-tile beams — the product
+                   path; see `accel/clusters.py` and `trace/dense.py`.
     - ``BRUTE``:   no structure; tiled all-pairs intersection.  This is the
                    correctness oracle, the analog of the reference's
                    ``#define CUDA 0`` CPU fallback (`Raytracer/CudaComon.cuh:36-56`).
@@ -58,7 +58,7 @@ class BvhConfig:
     #: Collapse subtrees with <= this many faces into a single leaf
     #: (analog of MAX_FACES_PER_BOX=256, `BuildTree.cuh:17`).  Larger
     #: leaves make a shallower tree — shorter beam walks and bigger dense
-    #: VPU sweeps; 16 is the measured sweet spot on TPU v5e (bunny 512^2).
+    #: leaf sweeps.
     max_leaf_faces: int = 16
 
 
@@ -67,15 +67,12 @@ class ClusterConfig:
     """Dense cluster structure knobs (`accel/clusters.py`).
 
     Plays the role of the reference's leaf-capacity knobs
-    (MAX_FACES_PER_BOX, `BuildTree.cuh:17`) for the dense TPU fast path.
+    (MAX_FACES_PER_BOX, `BuildTree.cuh:17`) for the dense fast path.
     """
 
     #: Morton-consecutive triangles per cluster.  The dense sweep tests
     #: whole clusters, so this is the work granularity: smaller = tighter
-    #: culling, larger = fewer/cheaper bookkeeping rows.  128 keeps the
-    #: segments lane-aligned for the Pallas tile-sweep kernels — the
-    #: product fast path on TPU (`trace/pallas_sweep.py`); 16 was the
-    #: XLA-dense sweet spot and remains available for experiments.
+    #: culling, larger = fewer/cheaper bookkeeping rows.
     cluster_size: int = 128
     #: Morton quantization bits per axis.
     morton_bits: int = 10
@@ -111,8 +108,7 @@ class WavefrontConfig:
     #: Rounds of queue expansion before compaction.
     rounds_per_compaction: int = 8
     #: Rays per sequential block — bounds stage B's [rays, Q*K, 3]
-    #: intermediates (minor dims pad to 128 lanes on TPU; a whole 512²
-    #: frame in one batch requested 34 GB of HBM).
+    #: intermediates.
     ray_chunk: int = 4096
 
 
@@ -127,8 +123,7 @@ class TraceConfig:
     #: Epsilon for t>eps clipping and shadow-ray offsets.
     t_epsilon: float = 1e-4
     #: Ray-tile size for kernels (flattened pixels per tile; the analog of
-    #: MARCH_THREADS=256 blocks, `BuildTree.cuh:13`).  Must be a multiple of
-    #: 1024 for (8,128) TPU tiling.
+    #: MARCH_THREADS=256 blocks, `BuildTree.cuh:13`).
     tile_rays: int = 8192
     #: Triangle-chunk size for brute-force intersection sweeps.
     tile_faces: int = 256
@@ -156,21 +151,6 @@ class TraceConfig:
     #: Cluster-column chunk for the [tiles x clusters] cull/sort rectangle;
     #: scenes with more clusters run multiple exact passes.
     dense_cluster_chunk: int = 8192
-    #: One-hot compaction width for the per-tile survivor lists feeding
-    #: the Pallas sweep kernels: ranks < this take the cheap one-hot
-    #: matmul (its [tiles, segments, width] intermediate scales linearly
-    #: in the width); any frame where some tile exceeds it falls back to
-    #: the exact full-width sort (lax.cond, one branch runs).  32 covers
-    #: every measured frame at 128-triangle segments (bunny max ~20).
-    sweep_list_width: int = 32
-    #: Route pinhole frames through the Pallas tile-sweep kernel
-    #: (`trace/pallas_sweep.py`) instead of the XLA dense sweep.  Requires
-    #: ClusterConfig.cluster_size to be a multiple of 128 (lane-aligned
-    #: segments); ignored otherwise.  ``None`` (default) = auto: the
-    #: kernel on TPU (Mosaic), the XLA dense path elsewhere; ``True``
-    #: forces the kernel even off-TPU (Pallas interpret mode — how the
-    #: CPU suite covers kernel semantics).
-    use_pallas_sweep: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,7 +28,7 @@ pixel.  The only differentiated function is the PROJECTION of the edge
 endpoints to screen space — one `jax.vjp` carries the boundary term to
 vertex positions, the eye, and the orientation in a single pullback.
 
-TPU shape discipline: the edge table ([E,2] vertex ids, [E,2] adjacent
+Shape discipline: the edge table ([E,2] vertex ids, [E,2] adjacent
 faces) is static host-side data from the topology; every per-step array
 is a fixed [E] / [E,K] plane — no data-dependent shapes, no host
 round-trips inside jit.
@@ -41,6 +41,7 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from ..config import RenderConfig
 from ..models.scene import SceneData
@@ -90,7 +91,8 @@ def project_screen(p: jnp.ndarray, eye: jnp.ndarray, orient: jnp.ndarray,
     Inverts the pinhole grid of `models/camera.camera_ray_grid`: a world
     direction ``orient @ (gx, gy, zoom)`` reaches ``p``, so with camera
     coords ``q = orient^T (p - eye)``: ``gx = zoom q_x / q_z``."""
-    q = (p - eye[None, :]) @ orient  # rows: orient^T (p - eye)
+    # rows: orient^T (p - eye)
+    q = jnp.matmul(p - eye[None, :], orient, precision=Precision.HIGHEST)
     z = q[:, 2]
     safe = jnp.where(jnp.abs(z) < 1e-12, 1e-12, z)
     return jnp.stack([zoom * q[:, 0] / safe, zoom * q[:, 1] / safe],

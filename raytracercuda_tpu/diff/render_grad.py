@@ -18,9 +18,8 @@ differentiating through a discrete acceleration structure (SURVEY.md §7
      albedo, texture texels, eye and orientation.
 
 Shadow/occlusion predicates are likewise discrete and stop-gradded.
-This is exactly the ``custom_vjp`` structure of the Pallas guide's
-pattern, expressed through stop_gradient + recompute (XLA fuses the
-recompute into the backward pass).
+This is the ``custom_vjp`` structure expressed through stop_gradient +
+recompute (XLA fuses the recompute into the backward pass).
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from ..config import AccelKind, RenderConfig
 from ..models.mesh import VERTEX_DATA_NORMAL, VERTEX_DATA_UV1
@@ -40,16 +40,6 @@ from ..types import FLT_MAX, Hit
 
 def _stop_grad_scene(scene: SceneData) -> SceneData:
     return jax.tree_util.tree_map(jax.lax.stop_gradient, scene)
-
-
-#: Tile shape/window for the coalesced backward scatter
-#: (`diff/scatter.py`): 256 consecutive row-major pixels per tile, two
-#: 2048-slot windows each (strays fall back exactly).
-_SCATTER_B = 256
-_SCATTER_WINDOW = 2048
-#: Test hook: force the tiled-gather route off-TPU (runs the Pallas
-#: backward through the interpreter).
-_FORCE_TILED = False
 
 
 def hit_nondiff(
@@ -109,56 +99,26 @@ def recompute_hit(
 
 def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
                           shadow_mask=None, ambient: float = 0.08,
-                          background=(0.0, 1.0, 0.0), rays=None, orient=None,
-                          accel=None, frame_hw=None):
+                          background=(0.0, 1.0, 0.0), rays=None, orient=None):
     """Differentiable recompute+shade as ONE row gather + planar math.
 
     The generic route (`recompute_hit` + `shade_lambert_rgb`) costs ~5
-    separate scattered gather rounds per frame, and every [N,3] op pads
-    3 of 128 lanes on TPU — measured 173 ms of the 347 ms progressive
-    step at 1024² (r3 verdict Weak #3).  This path builds ONE per-face
-    row table [F, 22(+6)] = v0|e1|e2|n0|n1|n2|albedo|tex(|uv0|uv1|uv2)
+    separate scattered gather rounds per frame.  This path builds ONE
+    per-face row table [F, 22(+6)] = v0|e1|e2|n0|n1|n2|albedo|tex(|uv0|uv1|uv2)
     *inside* the traced function (so it stays differentiable — backward
     is a single [N,D]->[F,D] scatter-add, then [F]->[V] through the
     build), gathers one row per ray, transposes once, and does all
-    per-ray math on [N] lane-major columns (measured 64 -> 38 ms at
-    1024²).  Texturing is one additional [N,12] quad-row gather (the 2x2
-    bilinear footprint pre-shifted per texel) instead of four scattered
-    [N,3] taps.  Formulas mirror `ops/math.tri_intersect` and
-    `shade_lambert_rgb` term for term.
+    per-ray math on [N] columns.  Texturing is one additional [N,12]
+    quad-row gather (the 2x2 bilinear footprint pre-shifted per texel)
+    instead of four scattered [N,3] taps.  Formulas mirror
+    `ops/math.tri_intersect` and `shade_lambert_rgb` term for term.
 
     Requires ``eye`` to be the common origin of all rays (pinhole frame).
     When ``rays``+``orient`` are given, directions are produced PLANAR
     via one einsum (gradients flow to ``orient``); otherwise ``dirs``
     [N,3] is transposed.  Returns float RGB ``[N,3]``.
-
-    When ``accel`` carries a ``face_rank`` (the cluster build's inverse
-    Morton permutation), the row table is built in SLOT order and both
-    per-ray gathers route through `diff.scatter.gather_rows_tiled`: the
-    backward then scatters into narrow per-tile windows with a Pallas
-    one-hot-matmul kernel instead of XLA's serial scatter — the fix for
-    the r4 grad-step wall (78 + 96 ms of scatter at 1024²).
     """
     f = scene.faces
-    num_rays = face_ids.shape[0]
-    use_tiled = (
-        accel is not None
-        and getattr(accel, "face_rank", None) is not None
-        and num_rays % _SCATTER_B == 0
-        and (jax.default_backend() == "tpu" or _FORCE_TILED)
-    )
-    if use_tiled:
-        from .scatter import gather_rows_tiled
-
-        # Slot-ordered face table: pixel tiles hit Morton-contiguous
-        # slots, which is what makes the backward windows narrow.
-        order = jnp.maximum(accel.face_order[:f.shape[0]], 0)
-        f = f[order]
-        ids = accel.face_rank[jnp.maximum(face_ids, 0)]
-        ids = jnp.where(face_ids < 0, -1, ids)
-        tile_shape = (num_rays // _SCATTER_B, _SCATTER_B)
-    else:
-        ids = face_ids
     pos = scene.positions
     v0 = pos[f[:, 0]]
     e1 = pos[f[:, 1]] - v0
@@ -174,17 +134,14 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
         cols += [uv[f[:, 0], :2], uv[f[:, 1], :2], uv[f[:, 2], :2]]
     rows = jnp.concatenate(cols, axis=1)  # [F, 22(+6)]
 
-    if use_tiled:
-        r = gather_rows_tiled(rows, ids, _SCATTER_WINDOW, tile_shape,
-                              frame_hw=frame_hw)
-    else:
-        r = rows[jnp.maximum(ids, 0)]  # the ONE per-ray gather
+    r = rows[jnp.maximum(face_ids, 0)]  # the ONE per-ray gather
     rT = r.T  # [D, N]: columns become full-lane [N] planes
     c = [rT[i] for i in range(rT.shape[0])]
     if rays is not None and orient is not None:
         # dirs = rays @ orient.T, produced directly in planar [3, N] form
         # (the transpose folds into the contraction; `rotate_rays` parity).
-        d3 = jnp.einsum("ij,nj->in", orient, rays)
+        d3 = jnp.einsum("ij,nj->in", orient, rays,
+                        precision=Precision.HIGHEST)
         dx, dy, dz = d3[0], d3[1], d3[2]
     else:
         dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
@@ -262,13 +219,7 @@ def _rows_recompute_shade(scene, face_ids, eye, dirs, light_dir,
         ay = fv - y0
         tid = jnp.clip(tex_id, 0, tcount - 1)
         qidx = (tid * th + y0) * tw + x0
-        if use_tiled:
-            # Texel indices are uv-coherent per pixel tile — same
-            # windowed backward as the attribute rows.
-            q = gather_rows_tiled(flat, qidx, _SCATTER_WINDOW,
-                                  tile_shape, frame_hw=frame_hw).T
-        else:
-            q = flat[qidx].T  # [12, N] planar
+        q = flat[qidx].T  # [12, N] planar
         texd = tex_id >= 0
         for ch, albedo_ch in enumerate((ar, ag, ab)):
             top = q[ch] * (1 - ax) + q[3 + ch] * ax
@@ -329,13 +280,12 @@ def render_rgb(
         shadow_mask = _occlusion_from_hit(scene, accel, hit_nd, origin,
                                           dirs, l, config, frame_hw)
 
-    # Fused fast path: one row gather + lane-major columns (same math as
-    # recompute_hit + shade_lambert_rgb, ~5x cheaper at 1024² on TPU).
+    # Fused fast path: one row gather + planar columns (same math as
+    # recompute_hit + shade_lambert_rgb).
     if VERTEX_DATA_NORMAL in scene.attrs:
         rgb, _, _ = _rows_recompute_shade(scene, face_ids, eye, dirs,
                                           light_dir, shadow_mask,
-                                          rays=initial_rays, orient=orient,
-                                          accel=accel, frame_hw=frame_hw)
+                                          rays=initial_rays, orient=orient)
         return rgb
 
     hit = recompute_hit(scene, face_ids, origin, dirs)
@@ -346,11 +296,7 @@ def render_rgb(
 
 def _occlusion_from_hit(scene, accel, hit_nd, origin, dirs, l, config,
                         frame_hw):
-    """Discrete directional-light occlusion mask from a nondiff Hit.
-
-    Routes to the Pallas occlusion kernel on the cluster/pinhole path
-    (the XLA `occlusion_dense` fallback measured 24 vs 19 ms at 1024²,
-    and the kernel shares the frame path's triangle operand)."""
+    """Discrete directional-light occlusion mask from a nondiff Hit."""
     sg = _stop_grad_scene(scene)
     accel_sg = jax.tree_util.tree_map(jax.lax.stop_gradient, accel)
     t_eps = config.trace.t_epsilon
@@ -368,36 +314,17 @@ def _occlusion_from_hit(scene, accel, hit_nd, origin, dirs, l, config,
         )
     elif config.accel == AccelKind.CLUSTER:
         tc = config.trace
-        if (
-            frame_hw is not None
-            and frame_hw[0] % tc.dense_tile_px == 0
-            and frame_hw[1] % tc.dense_tile_px == 0
-        ):
-            from ..trace.frame import use_pallas
+        if frame_hw is not None:
+            from ..trace.dense import occlusion_dense
 
-            if use_pallas(config, accel.cluster_size):
-                from ..trace.pallas_sweep import (occlusion_dense_pallas,
-                                                  segment_blocks)
-
-                blocks = (accel_sg.tri_blocks
-                          if accel_sg.tri_blocks is not None
-                          else segment_blocks(accel_sg))
-                mask = occlusion_dense_pallas(
-                    accel_sg, blocks, shadow_origin, l, hit_mask,
-                    height=frame_hw[0], width=frame_hw[1],
-                    tile_px=tc.dense_tile_px, trace_cfg=tc,
-                )
-            else:
-                from ..trace.dense import occlusion_dense
-
-                mask = occlusion_dense(
-                    accel_sg, shadow_origin, l, hit_mask,
-                    height=frame_hw[0], width=frame_hw[1],
-                    tile_px=tc.dense_tile_px,
-                    round_k=tc.dense_round_clusters,
-                    tiles_per_chunk=tc.dense_tiles_per_chunk,
-                    cluster_chunk=tc.dense_cluster_chunk, trace_cfg=tc,
-                )
+            mask = occlusion_dense(
+                accel_sg, shadow_origin, l, hit_mask,
+                height=frame_hw[0], width=frame_hw[1],
+                tile_px=tc.dense_tile_px,
+                round_k=tc.dense_round_clusters,
+                tiles_per_chunk=tc.dense_tiles_per_chunk,
+                cluster_chunk=tc.dense_cluster_chunk, trace_cfg=tc,
+            )
         else:
             from ..trace.dense import any_hit_clusters_rays
 
@@ -437,7 +364,7 @@ def _occlusion_from_hit(scene, accel, hit_nd, origin, dirs, l, config,
 
 
 def _render_fixed_ids(scene, initial_rays, eye, orient, face_ids, shadow_mask,
-                      config, shading, light_dir, accel=None, frame_hw=None):
+                      config, shading, light_dir):
     """The differentiable part of the render, for FIXED combinatorics."""
     from ..trace.shade import shade_lambert_rgb, shade_normal_rgb
 
@@ -449,8 +376,7 @@ def _render_fixed_ids(scene, initial_rays, eye, orient, face_ids, shadow_mask,
     if VERTEX_DATA_NORMAL in scene.attrs:
         rgb, _, _ = _rows_recompute_shade(scene, face_ids, eye, dirs,
                                           light_dir, shadow_mask,
-                                          rays=initial_rays, orient=orient,
-                                          accel=accel, frame_hw=frame_hw)
+                                          rays=initial_rays, orient=orient)
         return rgb
     hit = recompute_hit(scene, face_ids, origin, dirs)
     return shade_lambert_rgb(scene, hit, origin, dirs, light_dir=light_dir,
@@ -497,8 +423,7 @@ def _render_vjp_bwd(config, shading, with_shadows, light_dir, frame_hw,
     scene, accel, initial_rays, eye, orient, face_ids, shadow_mask = residual
     _, vjp = jax.vjp(
         lambda sc, rays, e, o: _render_fixed_ids(
-            sc, rays, e, o, face_ids, shadow_mask, config, shading, light_dir,
-            accel=accel, frame_hw=frame_hw
+            sc, rays, e, o, face_ids, shadow_mask, config, shading, light_dir
         ),
         scene, initial_rays, eye, orient,
     )
@@ -600,8 +525,7 @@ def _render_silhouette_bwd(config, width, height, zoom, shading, light_dir,
      face_ids) = residual
     _, vjp = jax.vjp(
         lambda sc, r, e, o: _render_fixed_ids(
-            sc, r, e, o, face_ids, None, config, shading, light_dir,
-            accel=accel, frame_hw=(height, width)),
+            sc, r, e, o, face_ids, None, config, shading, light_dir),
         scene, rays, eye, orient,
     )
     d_scene, d_rays, d_eye, d_orient = vjp(g)

@@ -1,6 +1,6 @@
 """Pinhole camera with a precomputed normalized ray grid.
 
-TPU-native analog of ``ICamera``/``Camera`` (`Raytracer/Beam.h:65-72`,
+Analog of ``ICamera``/``Camera`` (`Raytracer/Beam.h:65-72`,
 `Raytracer/Camera.cpp`).  The reference precomputes per-pixel normalized ray
 directions on the CPU in a double loop and uploads once
 (`Camera.cpp:51-69`); here the same math is a single vectorized jnp
@@ -48,6 +48,16 @@ def camera_ray_grid(
     d = 1.0 / jnp.sqrt(zoom * zoom + gx * gx + gy * gy)
     dirs = jnp.stack([gx * d, gy * d, gz * d], axis=-1)
     return dirs.reshape(height * width, 3)
+
+
+def framing_eye(positions, dist: float = 2.0) -> jnp.ndarray:
+    """Eye that frames a scene: backed off along -z from its AABB center
+    by ``dist`` times its largest extent (looking down +z)."""
+    p = np.asarray(positions)
+    lo, hi = p.min(axis=0), p.max(axis=0)
+    extent = float(np.max(hi - lo))
+    return jnp.asarray((lo + hi) / 2 - np.array([0.0, 0.0, dist * extent]),
+                       jnp.float32)
 
 
 def orient_from_pan_pitch(pan: float, pitch: float) -> np.ndarray:

@@ -1,6 +1,6 @@
 """OBJ/MTL model loading into framework meshes.
 
-TPU-framework analog of the reference's Assimp-based model loader
+Analog of the reference's Assimp-based model loader
 (`TestProgram/Model.cpp:26-126`): triangulated import, per-material
 sub-meshes, unified vertex indices, position/normal/uv/tangent/bitangent
 slots filled, scene AABB and face/vertex stats computed.  Textures come
@@ -281,3 +281,48 @@ def load_model_err(path: str, scene: Scene, scale: float = 1.0) -> int:
         f"{total_verts} vertices, {total_faces} faces"
     )
     return ERROR_ALL_FINE
+
+
+def write_obj(path: str, groups, materials=None) -> None:
+    """Write meshes as one OBJ (plus ``<stem>.mtl`` when ``materials`` is
+    given) that `parse_obj` reads back.
+
+    ``groups``: list of ``(material_name, mesh)``; each mesh's position,
+    normal and (when present) uv slots are written with per-group vertex
+    numbering.  ``materials``: ``{name: texture_file or None}``; texture
+    files are referenced by name, relative to the OBJ."""
+    stem = os.path.splitext(os.path.basename(path))[0]
+    lines = []
+    if materials:
+        mtl_lines = []
+        for name, tex in materials.items():
+            mtl_lines += [f"newmtl {name}", "Kd 1 1 1"]
+            if tex:
+                mtl_lines.append(f"map_Kd {tex}")
+        with open(os.path.join(os.path.dirname(path), stem + ".mtl"),
+                  "w") as f:
+            f.write("\n".join(mtl_lines) + "\n")
+        lines.append(f"mtllib {stem}.mtl")
+    base = 1
+    for mat_name, mesh in groups:
+        pos = mesh.positions
+        nrm = mesh.vertex_data(VERTEX_DATA_NORMAL)
+        uv = mesh.vertex_data(VERTEX_DATA_UV1)
+        lines += [f"v {x:.7g} {y:.7g} {z:.7g}" for x, y, z in pos]
+        if nrm is not None:
+            lines += [f"vn {x:.7g} {y:.7g} {z:.7g}" for x, y, z in nrm]
+        if uv is not None:
+            lines += [f"vt {u:.7g} {v:.7g}" for u, v in uv[:, :2]]
+        if mat_name:
+            lines.append(f"usemtl {mat_name}")
+        tri = mesh.indices.reshape(-1, 3).astype(np.int64) + base
+        if nrm is not None and uv is not None:
+            lines += [f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}"
+                      for a, b, c in tri]
+        elif nrm is not None:
+            lines += [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in tri]
+        else:
+            lines += [f"f {a} {b} {c}" for a, b, c in tri]
+        base += pos.shape[0]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

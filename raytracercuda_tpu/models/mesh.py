@@ -1,6 +1,6 @@
 """Triangle mesh with the reference's 10-slot vertex-attribute model.
 
-TPU-native analog of ``IMesh``/``Mesh`` (`Raytracer/Beam.h:47-54`,
+Analog of ``IMesh``/``Mesh`` (`Raytracer/Beam.h:47-54`,
 `Raytracer/Mesh.{h,cpp}`): up to 10 named vertex-data slots of 1-4 float
 components (position forced to 3), an index buffer, and the same parameter
 validation / error codes (`Mesh.cpp:30-54`).  Data lives as numpy/JAX arrays

@@ -1,13 +1,26 @@
-"""Procedural test geometry (no file IO) — icosphere and quad generators
-for entry-point compile checks and benchmarks when Content meshes are
-unavailable.  The quad mirrors the reference's hand-built fixture
-(`TestProgram/Program.cpp:153-185`)."""
+"""Procedural geometry (no file IO): icosphere, quad and bumpy-sphere
+generators, and the seeded stand-in scenes every benchmark and smoke run
+renders.  The quad mirrors the reference's hand-built fixture
+(`TestProgram/Program.cpp:153-185`).
+
+The stand-ins match the reference's benchmark meshes in face count only:
+bunny and f16 ship with the reference (SURVEY.md §4); armadillo and tyra
+are referenced by it but not shipped (`Program.cpp:142-145`).  Nothing is
+read from disk, so every run renders the same scenes from their seeds.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..config import DEFAULT_CONFIG, RenderConfig
 from .mesh import Mesh, VERTEX_DATA_NORMAL, VERTEX_DATA_POSITION, VERTEX_DATA_UV1
+from .scene import Material, Scene
+
+BUNNY_FACES = 69630
+F16_FACES = 4056
+ARMADILLO_FACES = 345944
+TYRA_FACES = 100002
 
 
 def icosphere(subdivisions: int = 3, radius: float = 1.0, center=(0.0, 0.0, 0.0)):
@@ -147,3 +160,55 @@ def bumpy_sphere_mesh(
     assert mesh.set_vertex_data(normals, nv, 3, VERTEX_DATA_NORMAL) == 0
     assert mesh.set_vertex_data(uvs, nv, 2, VERTEX_DATA_UV1) == 0
     return mesh
+
+
+def seeded_texture(size: int = 256, cells: int = 8, seed: int = 0) -> np.ndarray:
+    """``[size, size, 3]`` float32 texture: a grid of seeded random colors."""
+    rng = np.random.default_rng(seed)
+    colors = rng.uniform(0.2, 1.0, (cells, cells, 3)).astype(np.float32)
+    rep = -(-size // cells)
+    return np.repeat(np.repeat(colors, rep, 0), rep, 1)[:size, :size]
+
+
+def bunny_scene(config: RenderConfig = DEFAULT_CONFIG,
+                num_faces: int = BUNNY_FACES) -> Scene:
+    """Benchmark config 3: the bunny stand-in."""
+    scene = Scene.create(config)
+    scene.add_mesh(bumpy_sphere_mesh(num_faces, center=(0.0, 0.0, 3.0),
+                                     seed=1))
+    return scene
+
+
+def textured_scene(config: RenderConfig = DEFAULT_CONFIG,
+                   f16_faces: int = F16_FACES,
+                   armadillo_faces: int = ARMADILLO_FACES) -> Scene:
+    """Benchmark config 4: a textured f16 stand-in in front of the
+    armadillo stand-in (``armadillo_faces=0`` leaves it out)."""
+    scene = Scene.create(config)
+    f16 = bumpy_sphere_mesh(f16_faces, radius=1.5, center=(0.0, 0.0, 3.0),
+                            seed=4)
+    scene.textures.append(seeded_texture(seed=4))
+    scene.materials.append(Material(texture_id=len(scene.textures) - 1))
+    f16.material_id = len(scene.materials) - 1
+    scene.add_mesh(f16)
+    if armadillo_faces:
+        scene.add_mesh(bumpy_sphere_mesh(armadillo_faces, radius=4.0,
+                                         center=(0.0, -1.0, 14.0), seed=2))
+    return scene
+
+
+def multi_mesh_scene(config: RenderConfig = DEFAULT_CONFIG,
+                     scale: int = 1) -> Scene:
+    """Benchmark config 5: bunny, armadillo and tyra stand-ins, mirror
+    reflectivity 0.3, 0.45 and 0.6.  ``scale`` divides every face count."""
+    scene = Scene.create(config)
+    parts = [(BUNNY_FACES, 0.6, (0.0, 0.5, 0.0), 1, 0.3),
+             (ARMADILLO_FACES, 0.9, (1.6, 0.8, 0.2), 2, 0.45),
+             (TYRA_FACES, 0.7, (-1.5, 0.6, -0.3), 3, 0.6)]
+    for faces, radius, center, seed, refl in parts:
+        mesh = bumpy_sphere_mesh(faces // scale, radius=radius,
+                                 center=center, seed=seed)
+        scene.materials.append(Material(reflectivity=refl))
+        mesh.material_id = len(scene.materials) - 1
+        scene.add_mesh(mesh)
+    return scene

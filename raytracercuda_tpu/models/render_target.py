@@ -1,10 +1,10 @@
 """Render target: the framebuffer as a device array.
 
-TPU-native analog of ``IRenderTarget``/``RenderTarget``
+Analog of ``IRenderTarget``/``RenderTarget``
 (`Raytracer/Beam.h:32-45`, `Raytracer/RenderTarget.{h,cpp}`).  The reference
 wraps a CUDA-mapped OpenGL texture-buffer object with lock/unlock map/unmap
 semantics and a process-global "current RT" (`RenderTarget.cpp:53-91`).
-There is no GL on a TPU pod: the render target is simply a packed-u32
+Without GL, the render target is simply a packed-u32
 framebuffer array that kernels produce, which can be gathered to host 0 and
 written out as PNG (`utils/png.py`).  lock/unlock are kept for API parity
 and enforce the same state machine (`ERROR_UNLOCK_FIRST`/`ERROR_LOCK_FIRST`,

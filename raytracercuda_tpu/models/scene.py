@@ -1,12 +1,12 @@
 """Scene: mesh aggregation into flat device arrays, backend dispatch.
 
-TPU-native analog of ``IScene``/``Scene`` and its concrete implementations
+Analog of ``IScene``/``Scene`` and its concrete implementations
 (`Raytracer/Scene.{h,cpp}`, `SceneTree.cpp`, `SceneHash.cpp`,
 `SceneProgressive.cpp`).  Where the reference assembles a device array of
 per-mesh *pointer tables* (``StaticMeshData[]``, `Scene.cpp:58-79`,
-`SharedTypes.h:10-18`), the TPU scene concatenates every mesh into single
+`SharedTypes.h:10-18`), the scene concatenates every mesh into single
 flat SoA buffers with a global face table — no pointers, just indices —
-which is what the traversal kernels consume directly from HBM.
+which is what the traversal kernels consume directly from device memory.
 
 Backend selection (kd-tree / hash / progressive in the reference,
 `Scene.cpp:20-30` switching on the compile-time ``TREE_TYPE``) is a runtime

@@ -1,10 +1,10 @@
-"""Animated rounded-square SDF "blob" — Pallas tile kernel.
+"""Animated rounded-square SDF "blob".
 
-TPU-native equivalent of ``bmKernelBlob``/``bmStartBlob``
+Equivalent of ``bmKernelBlob``/``bmStartBlob``
 (`Raytracer/Blob.cu:5-69`), the reference's procedural-animation smoke
 test: a rotating rounded-square signed distance field smoothstep-mixed
-over a vignetted background.  The animation time is a traced scalar (SMEM)
-so frames don't recompile.
+over a vignetted background.  The animation time is a traced scalar, so
+frames don't recompile.
 """
 
 from __future__ import annotations
@@ -13,11 +13,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from .math import pack_rgb
-from .pallas_util import LANES, SUBLANES, interpret_mode, padded_rows, tile_linear_index
 
 
 def _square_sdf(ux, uy, hx, hy):
@@ -59,22 +55,5 @@ def blob_values(i: jnp.ndarray, w: int, h: int, time) -> jnp.ndarray:
 @partial(jax.jit, static_argnames=("width", "height"))
 def blob(width: int, height: int, time) -> jnp.ndarray:
     """``bmStartBlob`` analog: ``[width*height]`` packed u32 at ``time``."""
-    size = width * height
-    rows = padded_rows(size)
-    time_arr = jnp.asarray(time, jnp.float32).reshape(1, 1)
-
-    def kernel(time_ref, out_ref):
-        idx = tile_linear_index(pl.program_id(0))
-        out_ref[:, :] = blob_values(idx, width, height, time_ref[0, 0])
-
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((rows, LANES), jnp.uint32),
-        grid=(rows // SUBLANES,),
-        in_specs=[pl.BlockSpec((1, 1), memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec(
-            (SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret_mode(),
-    )(time_arr)
-    return out.reshape(-1)[:size]
+    idx = jnp.arange(width * height, dtype=jnp.int32)
+    return blob_values(idx, width, height, jnp.asarray(time, jnp.float32))

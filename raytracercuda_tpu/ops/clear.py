@@ -1,9 +1,8 @@
-"""Framebuffer clear — Pallas tile kernel.
+"""Framebuffer clear.
 
-TPU-native equivalent of ``bmKernelClear``/``bmClear``
-(`Raytracer/RTClear.cu:8-48`): fill the packed-u32 framebuffer with a
-constant.  One ``(8,128)`` VMEM tile per grid step instead of 256-thread
-CUDA blocks.
+Equivalent of ``bmKernelClear``/``bmClear`` (`Raytracer/RTClear.cu:8-48`):
+fill the packed-u32 framebuffer with a constant.  XLA emits the fill as one
+kernel.
 """
 
 from __future__ import annotations
@@ -12,29 +11,16 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .pallas_util import LANES, SUBLANES, interpret_mode, padded_rows
-
-
-def _clear_kernel(value_ref, out_ref):
-    out_ref[:, :] = jnp.broadcast_to(value_ref[0, 0], (SUBLANES, LANES))
+import numpy as np
 
 
 @partial(jax.jit, static_argnames=("num_pixels",))
+def _fill(num_pixels: int, value) -> jnp.ndarray:
+    return jnp.full((num_pixels,), value, jnp.uint32)
+
+
 def clear_buffer(num_pixels: int, value) -> jnp.ndarray:
     """Return a ``[num_pixels]`` u32 buffer filled with ``value``."""
-    rows = padded_rows(num_pixels)
-    value_arr = jnp.asarray(value, jnp.uint32).reshape(1, 1)
-    out = pl.pallas_call(
-        _clear_kernel,
-        out_shape=jax.ShapeDtypeStruct((rows, LANES), jnp.uint32),
-        grid=(rows // SUBLANES,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec(
-            (SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret_mode(),
-    )(value_arr)
-    return out.reshape(-1)[:num_pixels]
+    # np.uint32 first: a Python int above 2**31 overflows jit's int32
+    # argument conversion.
+    return _fill(num_pixels, np.uint32(value))

@@ -1,6 +1,6 @@
-"""Six-band color gradient — Pallas tile kernel.
+"""Six-band color gradient.
 
-TPU-native equivalent of ``bmKernelColorGradient``/``bmStartColorGradient``
+Equivalent of ``bmKernelColorGradient``/``bmStartColorGradient``
 (`Raytracer/Gradient.cu:5-52`), the reference's simplest full-frame display
 smoke test: the linear pixel index selects one of six color ramps
 (R, G, B, RG, GB, RB), each fading 0..255 across its band.  Bit-identical
@@ -13,10 +13,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .pallas_util import LANES, SUBLANES, interpret_mode, padded_rows, tile_linear_index
 
 
 def gradient_values(i: jnp.ndarray, size: int) -> jnp.ndarray:
@@ -29,8 +25,7 @@ def gradient_values(i: jnp.ndarray, size: int) -> jnp.ndarray:
     i = jnp.where(i < size, i, 0)
     block = size // 6
     color_type = i // block
-    # f32 -> i32 -> u32: Mosaic lacks a direct f32->u32 cast; the value is
-    # in [0,255] so the int32 detour is exact.
+    # The value is in [0,255], so the int32 detour to u32 is exact.
     c = (
         ((i % block).astype(jnp.float32) / float(block) * 255.0)
         .astype(jnp.int32)
@@ -55,19 +50,4 @@ def gradient_values(i: jnp.ndarray, size: int) -> jnp.ndarray:
 def color_gradient(width: int, height: int) -> jnp.ndarray:
     """``bmStartColorGradient`` analog: ``[width*height]`` packed u32."""
     size = width * height
-    rows = padded_rows(size)
-
-    def kernel(out_ref):
-        idx = tile_linear_index(pl.program_id(0))
-        out_ref[:, :] = gradient_values(idx, size)
-
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((rows, LANES), jnp.uint32),
-        grid=(rows // SUBLANES,),
-        out_specs=pl.BlockSpec(
-            (SUBLANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret_mode(),
-    )()
-    return out.reshape(-1)[:size]
+    return gradient_values(jnp.arange(size, dtype=jnp.int32), size)

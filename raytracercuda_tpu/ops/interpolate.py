@@ -1,6 +1,6 @@
 """Barycentric vertex-attribute interpolation and indexed-face intersection.
 
-TPU-native equivalents of the reference's indexed-face helpers
+Equivalents of the reference's indexed-face helpers
 (`Raytracer/CudaComon.cuh:243-266`): gather a face's three vertex attributes
 by index and blend with Möller–Trumbore barycentrics.  Fully batched over
 arbitrary leading dims of ``face_ids``/``u``/``v``.

@@ -1,10 +1,10 @@
-"""Vectorized device math — the TPU equivalent of the reference's inline
+"""Vectorized device math — the equivalent of the reference's inline
 device math library (`Raytracer/CudaComon.cuh:71-236`).
 
 Every function here is pure JAX, fully broadcastable over leading batch
-dimensions, and usable both inside Pallas kernels and in plain jitted code.
+dimensions, and usable in plain jitted code.
 Nothing is scalar: where the reference computes one ray/triangle per CUDA
-thread, these compute whole ``[R]``/``[F]`` batches on the VPU.
+thread, these compute whole ``[R]``/``[F]`` batches.
 """
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ from ..types import FLT_MAX
 # ---------------------------------------------------------------------------
 
 def _to_u8(x):
-    # Route float->uint32 through int32: Mosaic has no direct f32->u32 cast,
-    # and the clamped [0,255] range is exactly representable in int32.
+    # The clamped [0,255] range is exactly representable in int32.
     return jnp.clip(x, 0.0, 255.0).astype(jnp.int32).astype(jnp.uint32)
 
 

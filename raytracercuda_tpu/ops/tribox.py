@@ -1,10 +1,9 @@
 """Vectorized separating-axis triangle/AABB overlap test.
 
-TPU-native equivalent of the reference's Akenine-Möller 13-axis SAT test
+Equivalent of the reference's Akenine-Möller 13-axis SAT test
 (`Raytracer/BoxTriangle.cuh:57-222`, the public-domain classic).  Instead of
 macro-generated scalar early-outs per CUDA thread, this evaluates all 13
-axes branchlessly over whole batches of (triangle, box) pairs — the natural
-VPU formulation.
+axes branchlessly over whole batches of (triangle, box) pairs.
 
 The 13 axes are:
   * 9 cross products  e_i x unit_j  (i edge, j coordinate axis),

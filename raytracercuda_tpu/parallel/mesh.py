@@ -2,11 +2,10 @@
 
 The reference is single-process/single-GPU (`cudaSetDevice(count-1)`,
 `TestProgram/Program.cpp:121-124`) — it has no distribution layer at all.
-This module is the first-class TPU replacement mandated by BASELINE.json:
-rays shard over the chips of a ``jax.sharding.Mesh`` axis named ``"rays"``
+This module is the distribution layer mandated by BASELINE.json: rays
+shard over the devices of a ``jax.sharding.Mesh`` axis named ``"rays"``
 (the data-parallel axis of a ray tracer); scene + BVH are replicated.
-Multi-host initialization goes through ``jax.distributed`` when launched
-on a pod slice.
+Multi-host initialization goes through ``jax.distributed``.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ def make_ray_mesh(num_devices: int | None = None, devices=None) -> Mesh:
 
 
 def ray_sharding(mesh: Mesh) -> NamedSharding:
-    """Sharding for ``[R, ...]`` ray-major arrays: leading dim over chips."""
+    """Sharding for ``[R, ...]`` ray-major arrays: leading dim over devices."""
     return NamedSharding(mesh, P(RAY_AXIS))
 
 
@@ -60,8 +59,8 @@ def initialize_distributed(
 
     Returns True when a multi-process runtime came up.  A deliberate no-op
     (returning False) ONLY when no multi-process launch is configured —
-    neither explicit arguments nor the standard env (JAX_COORDINATOR_ADDRESS
-    / cloud TPU metadata) are present.  A CONFIGURED launch that fails to
+    neither explicit arguments nor the standard env (JAX_COORDINATOR_ADDRESS)
+    are present.  A CONFIGURED launch that fails to
     initialize raises: silently falling back to single-process after a real
     multi-host failure would corrupt results (each host would render the
     full frame)."""
@@ -74,14 +73,7 @@ def initialize_distributed(
     )
     if not configured:
         return False
-    try:  # public API where available (jax >= 0.4.34)
-        already_up = jax.distributed.is_initialized()
-    except AttributeError:
-        already_up = getattr(
-            getattr(getattr(jax, "_src", None), "distributed", None),
-            "global_state", None) is not None and \
-            jax._src.distributed.global_state.client is not None
-    if already_up:
+    if jax.distributed.is_initialized():
         return True
     try:
         jax.distributed.initialize(

@@ -1,10 +1,10 @@
-"""Primitive-sharded ring traversal: scenes larger than one chip's HBM.
+"""Primitive-sharded ring traversal: scenes larger than one device's memory.
 
 Everywhere else in the framework the scene and its acceleration structure
-are REPLICATED per chip and rays are sharded (`parallel/shard.py`) — the
+are REPLICATED per device and rays are sharded (`parallel/shard.py`) — the
 right trade at reference scale, where the whole bunny is ~5 MB.  This
 module covers the other axis of SURVEY.md §5 ("working-set bounds"): when
-the triangle set itself outgrows a chip's HBM, shard the PRIMITIVES.
+the triangle set itself outgrows a device's memory, shard the PRIMITIVES.
 
 Design (ring pass-the-shard, the ray-tracing analog of ring attention):
 
@@ -15,16 +15,16 @@ Design (ring pass-the-shard, the ray-tracing analog of ring attention):
     HBM per device).
   * ``n`` ring steps: each device sweeps its resident rays against the
     cluster shard it currently holds (the same matrix-form
-    Möller–Trumbore sweep as the single-chip dense path,
+    Möller–Trumbore sweep as the single-device dense path,
     `trace/dense.py:trace_clusters_rays`), min-combines the closest hit
     into a running best, then forwards the shard to its ring neighbour
-    with `jax.lax.ppermute` — a pure ICI transfer that XLA overlaps with
+    with `jax.lax.ppermute` — a device-to-device transfer that XLA overlaps with
     the next step's compute.
   * After ``n`` steps every ray band has seen every cluster exactly once;
     no device ever materializes more than two shards (the one it sweeps
     and the one arriving).
 
-Tie behavior matches the single-chip sweep exactly, by construction:
+Tie behavior matches the single-device sweep exactly, by construction:
 within a shard the sweep resolves equal-``t`` ties to the lowest cluster
 index (same code as the replicated path), and ACROSS shards the combine
 carries the global shard index of the current best and breaks exact-``t``
@@ -94,7 +94,6 @@ def pad_clusters_for_ring(cs: ClusterSet, n: int) -> ClusterSet:
         tris=pad0(cs.tris, 0.0),
         normal=pad0(cs.normal, 0.0),
         face_order=jnp.pad(cs.face_order, (0, rem * L), constant_values=-1),
-        tri_blocks=None if cs.tri_blocks is None else pad0(cs.tri_blocks, 0.0),
     )
 
 
@@ -182,8 +181,7 @@ def trace_ring_sharded(
 
     cs_specs = ClusterSet(
         cmin=P(RING_AXIS), cmax=P(RING_AXIS), tris=P(RING_AXIS),
-        normal=P(RING_AXIS), face_order=P(RING_AXIS),
-        tri_blocks=None if cs.tri_blocks is None else P(RING_AXIS))
+        normal=P(RING_AXIS), face_order=P(RING_AXIS))
     body = partial(_ring_local, n=n, trace_cfg=trace_cfg,
                    ray_chunk=ray_chunk, cluster_chunk=cluster_chunk)
     # check_vma=False: the inner dense sweep seeds its fori_loop carries

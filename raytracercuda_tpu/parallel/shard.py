@@ -1,17 +1,17 @@
-"""Sharded render and training steps over a TPU mesh.
+"""Sharded render and training steps over a device mesh.
 
-Ray tiles shard across chips (``shard_map`` over the ``"rays"`` axis);
+Ray tiles shard across devices (``shard_map`` over the ``"rays"`` axis);
 the flattened scene and the acceleration structure are replicated, so
-traversal touches only local HBM and NO communication happens in the
-forward pass.  The backward pass of the training step produces per-shard
-parameter gradients which are all-reduced with ``psum`` over ICI — XLA
+traversal touches only local device memory and NO communication happens
+in the forward pass.  The backward pass of the training step produces
+per-shard parameter gradients which are all-reduced with ``psum`` — XLA
 schedules the collective against the remaining backward computation
 (the overlap BASELINE.json's north star asks for).
 
 ``shard_map`` (not plain jit-with-shardings) matters here: the traversal
 ``while_loop``'s termination test is a global ``any`` — under jit that
-would force a cross-chip collective every iteration, while under
-shard_map each chip loops only until ITS rays finish.
+would force a cross-device collective every iteration, while under
+shard_map each device loops only until ITS rays finish.
 """
 
 from __future__ import annotations
@@ -89,8 +89,7 @@ def render_sharded(
 
 def make_train_step(config: RenderConfig, mesh: Mesh, optimizer=None,
                     shading: str = "lambert", with_shadows: bool = False,
-                    frame_hw: tuple[int, int] | None = None,
-                    psum_grads: bool = True):
+                    frame_hw: tuple[int, int] | None = None):
     """Build a jitted distributed training step for inverse rendering.
 
     The returned ``step(params, opt_state, scene, accel, rays, eye,
@@ -98,13 +97,8 @@ def make_train_step(config: RenderConfig, mesh: Mesh, optimizer=None,
     is a pytree of differentiable scene parameters — by convention
     ``{"positions": [V,3]}`` plus optionally ``albedo``/``textures`` —
     grafted onto the (replicated) scene before rendering.  Gradients are
-    ``psum``-reduced over the ray axis inside shard_map, so each chip
+    ``psum``-reduced over the ray axis inside shard_map, so each device
     holds identical updated parameters afterwards.
-
-    ``psum_grads=False`` skips the gradient/loss all-reduce — the
-    resulting step is WRONG on >1 device (per-shard gradients diverge)
-    and exists only so `scripts/bench_overheads.py` can measure the
-    isolated collective cost by differencing the two variants.
     """
     import optax
 
@@ -142,11 +136,10 @@ def make_train_step(config: RenderConfig, mesh: Mesh, optimizer=None,
         loss, grads = jax.value_and_grad(local_loss)(
             params, scene, accel, rays_shard, eye, orient, target_shard
         )
-        # Gradient all-reduce over ICI (`psum`), overlapped by XLA with the
-        # rest of backward — the analog the reference never had.
-        if psum_grads:
-            grads = jax.lax.psum(grads, RAY_AXIS)
-            loss = jax.lax.psum(loss, RAY_AXIS)
+        # Gradient all-reduce (`psum`), overlapped by XLA with the rest of
+        # backward — the analog the reference never had.
+        grads = jax.lax.psum(grads, RAY_AXIS)
+        loss = jax.lax.psum(loss, RAY_AXIS)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
@@ -201,7 +194,7 @@ def render_bounces_sharded(
     BASELINE config #5's shape: every bounce (primary dense trace,
     shadow pass, per-bounce compaction and re-dispatch) runs per shard
     with the scene+accel replicated — bounce rays scatter arbitrarily, so
-    keeping them on their home chip costs no communication at all, while
+    keeping them on their home device costs no communication at all, while
     re-sharding them by direction would.  Reference precedent for the
     re-dispatch loop: the wavefront queues of `Trace2.cu:69-176`.
     """

@@ -1,7 +1,7 @@
-"""Beam (tile-frustum) tracing: the TPU-native primary-ray fast path.
+"""Beam (tile-frustum) tracing: the BVH primary-ray fast path.
 
 The reference traces one CUDA thread per ray, each walking the tree
-independently (`BuildTree.cu:367-499`).  On a TPU, per-ray traversal is
+independently (`BuildTree.cu:367-499`).  Vectorized, per-ray traversal is
 gather-bound and pays the slowest ray's path length in every lockstep
 tile.  Beam tracing restructures the work the way the hardware wants it
 (and completes the arc the reference began by naming its library "Beam"):
@@ -14,7 +14,7 @@ tile.  Beam tracing restructures the work the way the hardware wants it
     ranges to the tile's bounded candidate queue.
 
   Phase C (test)  — dense Möller-Trumbore of every tile's 256 rays
-    against its candidate faces, a pure VPU sweep over Morton-contiguous
+    against its candidate faces, an elementwise sweep over Morton-contiguous
     triangle rows with per-ray min-reduction.
 
   Rounds — a tile whose queue fills simply pauses its walk cursor and
@@ -23,7 +23,7 @@ tile.  Beam tracing restructures the work the way the hardware wants it
     drop overflow.
 
 Per-ray cost collapses from (path length x gathers) to (candidates x
-~50 VPU flops): the 256 rays of a tile amortize one traversal.
+~50 flops): the 256 rays of a tile amortize one traversal.
 """
 
 from __future__ import annotations

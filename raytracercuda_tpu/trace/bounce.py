@@ -81,50 +81,12 @@ def render_bounces(
     ``use_brute`` swaps every trace for the brute-force oracle — the
     correctness reference the tests compare against (same control flow,
     so only the acceleration structure is under test).
-
-    On TPU (``use_pallas``) the whole frame routes to the fused Pallas
-    kernels (`trace/pallas_bounce.py`) — primary, shadows, and every
-    bounce; the XLA path below remains the CPU/fallback tier and the
-    differentiable route.  Callers rendering many frames should build the
-    shade blocks once and call `render_bounces_pallas` directly.
     """
     tc = config.trace
-    if not use_brute:
-        from .frame import use_pallas
-
-        if use_pallas(config, getattr(cs, "cluster_size", 0)):
-            from .pallas_bounce import render_bounces_pallas
-            from .pallas_sweep import shade_segment_blocks
-
-            # Frames that don't divide the tile size are edge-padded and
-            # cropped (1080p at 16 px tiles pads 8 rows: replicated edge
-            # rays are valid directions, their pixels are discarded).
-            # 16 px tiles halve the vector-width waste and quarter the
-            # per-tile fixed cost of 8 px tiles at 1080p (MEASUREMENTS).
-            tp = tc.dense_tile_px
-            hp = -(-height // tp) * tp
-            wp = -(-width // tp) * tp
-            d = dirs
-            if (hp, wp) != (height, width):
-                img = dirs.reshape(height, width, 3)
-                img = jnp.pad(img, ((0, hp - height), (0, wp - width),
-                                    (0, 0)), mode="edge")
-                d = img.reshape(hp * wp, 3)
-            blocks, has_uv = shade_segment_blocks(cs, scene)
-            rgb = render_bounces_pallas(
-                cs, blocks, has_uv, scene.textures, eye, d, hp, wp,
-                tile_px=tp, num_bounces=num_bounces,
-                light_dir=light_dir, with_shadows=with_shadows,
-                background=background, trace_cfg=tc)
-            if (hp, wp) != (height, width):
-                rgb = rgb.reshape(hp, wp, 3)[:height, :width]
-                rgb = rgb.reshape(height * width, 3)
-            return rgb
+    # One offset for both routes, so the oracle's secondary rays start
+    # exactly where the accelerated path's do.
     eps = jnp.float32(tc.t_epsilon) * jnp.maximum(
-        jnp.max(cs.cmax) - jnp.min(cs.cmin), 1.0
-    ) if not use_brute else jnp.float32(tc.t_epsilon) * jnp.maximum(
-        jnp.max(scene.positions) - jnp.min(scene.positions), 1.0
-    )
+        jnp.max(scene.positions) - jnp.min(scene.positions), 1.0)
     light = jnp.asarray(light_dir, jnp.float32)
     light = light / jnp.linalg.norm(light)
     bg = jnp.asarray(background, jnp.float32)

@@ -4,8 +4,8 @@ This plays the role of the reference's CPU fallback backend
 (``#define CUDA 0``, `Raytracer/CudaComon.cuh:36-56` + the serial loops in
 every launcher, e.g. `BuildTree.cu:521-541`) and of the dead brute-force
 kernel `Raytracer/Trace.cu:39-185`: intersect every ray against every
-triangle, keep the closest.  TPU-first it is a tiled sweep — ray tiles by
-triangle chunks, a pure VPU workload — rather than one thread per ray.
+triangle, keep the closest.  It is a tiled sweep — ray tiles by
+triangle chunks, pure elementwise work — rather than one thread per ray.
 
 Every acceleration structure is validated allclose against this tracer.
 """

@@ -1,46 +1,35 @@
-"""Dense (matrix-form) tracing: the TPU fast path for pinhole frames and
-directional-light shadows.
+"""Dense (matrix-form) tracing for pinhole frames and directional-light
+shadows.
 
 Fills the role of the reference's march kernels (`BuildTree.cu:367-499`)
 but with the opposite work shape.  Where a CUDA thread walks a pointer
-tree per ray, this path does three rectangular passes the TPU's compute
-units were built for:
+tree per ray, this path does three rectangular passes:
 
   1. CULL   — every pixel tile's frustum against every cluster AABB, one
               dense ``[tiles, clusters]`` rectangle of plane tests whose
-              dot products are two matmuls (p-vertex trick split as
+              dot products are one matmul (p-vertex trick split as
               ``n.(c-eye) + |n|.h``).
   2. COMPACT— per-tile survivor lists via a row sort of the cull mask
-              (measured fastest on-chip vs scatter/top_k; the ids arrive
-              Morton-ordered, i.e. spatially coherent).
+              (the ids arrive Morton-ordered, i.e. spatially coherent).
   3. SWEEP  — Möller–Trumbore of each tile's 256 rays against its
               candidate clusters as ONE ``[R,3] @ [3, 3·L·K]`` contraction
               per round (see `accel/clusters.py` for why det/u·det/v·det
-              are linear in the ray), plus a VPU compare epilogue and a
-              running min-reduction.
+              are linear in the ray), plus an elementwise compare epilogue
+              and a running min-reduction.
 
 Exactness: culling is conservative (a cluster is only skipped when its
 AABB provably misses the whole tile beam), every surviving cluster is
 tested (rounds advance a cursor through the FULL sorted survivor list —
 nothing is dropped on overflow), and the winning triangle is re-intersected
 with the oracle formula (`ops/math.tri_intersect`) so reported t/u/v are
-bit-identical to the brute-force reference for the same winner.
+bit-identical to the brute-force reference for the same winner.  Every f32
+contraction here is pinned to ``Precision.HIGHEST``: a reduced-precision
+(TF32) matmul could make the "conservative" cull drop a visible cluster or
+flip the closest hit.
 
-Why this is XLA-formulated rather than a Pallas traversal kernel
-----------------------------------------------------------------
-A TPU chip is ONE fat core: Pallas grid programs execute as a sequential
-pipeline, so "one program per ray/tile" (the CUDA shape of
-`BuildTree.cu:367`) serializes — any traversal must vectorize ACROSS
-tiles, which is exactly the batched rounds structure below.  The three
-phase primitives this path spends time in are ones XLA's hand-tuned TPU
-lowerings already own: a [T,C] matmul (cull), a row sort (compact — cumsum
-+searchsorted, scatter and top_k alternatives all measured slower on-chip;
-see MEASUREMENTS.md), and batched gathers+contractions (sweep, measured
-~sub-ms: XLA fuses the epilogue).  A Pallas rewrite of these re-implements
-the same primitives without the fusion XLA already does.  Pallas IS used
-where kernel fusion has an edge over XLA's chunk-materializing formulation:
-the all-pairs streaming sweep (`trace/pallas_brute.py`, flash-style
-running min in VMEM) and the full-frame framebuffer kernels (`ops/*.py`).
+Frames whose height or width is not a multiple of the tile edge are
+edge-padded to whole tiles and cropped back (`_pad_frame`); the replicated
+edge rays are valid directions whose pixels are discarded.
 """
 
 from __future__ import annotations
@@ -49,6 +38,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from ..accel.clusters import (
     ClusterSet,
@@ -61,9 +51,9 @@ from ..config import TraceConfig
 from ..ops.math import tri_intersect
 from ..types import FLT_MAX, Hit
 
-#: Sort key for culled clusters — larger than any cluster id.
 import numpy as _np
 
+#: Sort key for culled clusters — larger than any cluster id.
 _CULLED = _np.int32(1 << 30)
 
 
@@ -92,21 +82,31 @@ def untile_pixels(x: jnp.ndarray, height: int, width: int, tile_px: int):
     return x.reshape(shp).transpose(perm).reshape((height * width,) + trailing)
 
 
-def tile_pixels_planar(x3: jnp.ndarray, height: int, width: int,
-                       tile_px: int) -> jnp.ndarray:
-    """PLANAR ``[3, H*W]`` row-major -> ``[T, 3, R]`` tile-major.
+def _pad_frame(x: jnp.ndarray, height: int, width: int, tile_px: int,
+               fill=None):
+    """Pad a row-major ``[H*W, ...]`` frame to whole tiles.
 
-    The planar route to the Pallas kernels' ``[T, 3, R]`` operand: every
-    permute here moves whole pixel rows (the minor axis stays pixels), so
-    XLA relayouts at full lane width — unlike ``tile_pixels`` followed by
-    a ``[T,R,3] -> [T,3,R]`` transpose, whose minor-dim-3 shuffle was
-    measured at ~1 ms per 512² frame on its own."""
-    th, tw = height // tile_px, width // tile_px
-    return (
-        x3.reshape(3, th, tile_px, tw, tile_px)
-        .transpose(1, 3, 0, 2, 4)
-        .reshape(th * tw, 3, tile_px * tile_px)
-    )
+    Returns ``(x_padded, padded_height, padded_width)``.  New pixels
+    replicate the frame's edge (``fill=None``) or take ``fill``."""
+    hp = -(-height // tile_px) * tile_px
+    wp = -(-width // tile_px) * tile_px
+    if (hp, wp) == (height, width):
+        return x, height, width
+    img = x.reshape((height, width) + x.shape[1:])
+    widths = [(0, hp - height), (0, wp - width)] + [(0, 0)] * (x.ndim - 1)
+    if fill is None:
+        img = jnp.pad(img, widths, mode="edge")
+    else:
+        img = jnp.pad(img, widths, constant_values=fill)
+    return img.reshape((hp * wp,) + x.shape[1:]), hp, wp
+
+
+def _crop_frame(x: jnp.ndarray, height: int, width: int, hp: int, wp: int):
+    """Inverse of `_pad_frame`: padded ``[hp*wp, ...]`` -> ``[H*W, ...]``."""
+    if (hp, wp) == (height, width):
+        return x
+    img = x.reshape((hp, wp) + x.shape[1:])[:height, :width]
+    return img.reshape((height * width,) + x.shape[1:])
 
 
 def tile_frustum_planes(d_tiles: jnp.ndarray, tile_px: int) -> jnp.ndarray:
@@ -153,7 +153,7 @@ def _cull_frustum(planes: jnp.ndarray, eye: jnp.ndarray,
     n = planes.reshape(t * p, 3)
     a = jnp.concatenate([n, jnp.abs(n)], axis=1)  # [T*5, 6]
     b = jnp.concatenate([cmid, chalf], axis=1).T  # [6, C]
-    d = (a @ b).reshape(t, p, -1)  # [T,5,C]
+    d = jnp.matmul(a, b, precision=Precision.HIGHEST).reshape(t, p, -1)
     return jnp.min(d, axis=1) >= 0.0
 
 
@@ -227,6 +227,7 @@ def _sweep_primary(d_tiles, lists, counts, oc: OriginConsts, *,
             def quant(m):
                 m = m[safe].reshape(tc, K * L, 3)
                 return jnp.einsum("trx,tnx->trn", d_c, m,
+                                  precision=Precision.HIGHEST,
                                   preferred_element_type=jnp.float32)
 
             st = oc.st[safe].reshape(tc, K * L)  # [tc,K*L]
@@ -282,6 +283,7 @@ def _sweep_occlusion(o_tiles, a_tiles, lists, counts, dc: DirectionConsts, *,
             def quant(m):
                 m = m[safe].reshape(tc, K * L, 3)
                 return jnp.einsum("trx,tnx->trn", o_c, m,
+                                  precision=Precision.HIGHEST,
                                   preferred_element_type=jnp.float32)
 
             off = dc.off[safe].reshape(tc, K * L, 3)
@@ -333,12 +335,10 @@ def trace_dense(
     Args:
       dirs: ``[H*W, 3]`` row-major oriented pixel directions.
     """
-    assert height % tile_px == 0 and width % tile_px == 0, (
-        f"{height}x{width} not divisible by tile {tile_px}")
-    num_rays = dirs.shape[0]
+    padded, hp, wp = _pad_frame(dirs, height, width, tile_px)
     L = cs.cluster_size
     C = cs.num_clusters
-    d_tiles = tile_pixels(dirs, height, width, tile_px)
+    d_tiles = tile_pixels(padded, hp, wp, tile_px)
     planes = tile_frustum_planes(d_tiles, tile_px)
     num_tiles = d_tiles.shape[0]
     t_eps = float(trace_cfg.t_epsilon) if trace_cfg.clip_backward_hits else -FLT_MAX
@@ -349,24 +349,30 @@ def trace_dense(
 
     for c0 in range(0, C, cluster_chunk):
         c1 = min(C, c0 + cluster_chunk)
-        survive = _cull_frustum(planes, eye, cs.cmin[c0:c1], cs.cmax[c0:c1])
-        lists, counts = _compact(survive, round_k)
+        with jax.named_scope("cull"):
+            survive = _cull_frustum(planes, eye, cs.cmin[c0:c1],
+                                    cs.cmax[c0:c1])
+        with jax.named_scope("compact"):
+            lists, counts = _compact(survive, round_k)
+            # Chunks pay their DEEPEST tile's round count, so group tiles
+            # of similar depth together: permute tiles by survivor count
+            # for the sweep, un-permute its results.
+            perm = jnp.argsort(counts)
+            unperm = jnp.argsort(perm)
         oc_chunk = jax.tree_util.tree_map(lambda x: x[c0:c1], oc)
-        # Chunks pay their DEEPEST tile's round count, so group tiles of
-        # similar depth together: permute tiles by survivor count for the
-        # sweep, un-permute its results (measured ~3x on sparse frames).
-        perm = jnp.argsort(counts)
-        unperm = jnp.argsort(perm)
-        bt_p, bs_p = _sweep_primary(
-            d_tiles[perm], lists[perm], counts[perm], oc_chunk,
-            cluster_size=L, round_k=round_k, tiles_per_chunk=tiles_per_chunk,
-            chunk_offset=c0, t_eps=t_eps,
-            best_t=best_t[perm], best_slot=best_slot[perm],
-        )
-        best_t, best_slot = bt_p[unperm], bs_p[unperm]
+        with jax.named_scope("sweep"):
+            bt_p, bs_p = _sweep_primary(
+                d_tiles[perm], lists[perm], counts[perm], oc_chunk,
+                cluster_size=L, round_k=round_k,
+                tiles_per_chunk=tiles_per_chunk, chunk_offset=c0,
+                t_eps=t_eps, best_t=best_t[perm], best_slot=best_slot[perm],
+            )
+            best_t, best_slot = bt_p[unperm], bs_p[unperm]
 
-    bt = untile_pixels(best_t, height, width, tile_px)
-    bslot = untile_pixels(best_slot, height, width, tile_px)
+    bt = _crop_frame(untile_pixels(best_t, hp, wp, tile_px),
+                     height, width, hp, wp)
+    bslot = _crop_frame(untile_pixels(best_slot, hp, wp, tile_px),
+                        height, width, hp, wp)
 
     # Re-intersect each winner with the oracle formula so t/u/v match the
     # brute-force reference bit-for-bit (the sweep's algebraic rearrangement
@@ -540,11 +546,12 @@ def occlusion_dense(
       active: ``[H*W]`` bool — rays needing occlusion.
     Returns: ``[H*W]`` bool occlusion mask (False where not active).
     """
-    assert height % tile_px == 0 and width % tile_px == 0
     L = cs.cluster_size
     C = cs.num_clusters
-    o_tiles = tile_pixels(origins, height, width, tile_px)
-    a_tiles = tile_pixels(active, height, width, tile_px)
+    o_pad, hp, wp = _pad_frame(origins, height, width, tile_px)
+    a_pad, _, _ = _pad_frame(active, height, width, tile_px, fill=False)
+    o_tiles = tile_pixels(o_pad, hp, wp, tile_px)
+    a_tiles = tile_pixels(a_pad, hp, wp, tile_px)
     num_tiles = o_tiles.shape[0]
     t_eps = float(trace_cfg.t_epsilon)
 
@@ -558,16 +565,22 @@ def occlusion_dense(
 
     for c0 in range(0, C, cluster_chunk):
         c1 = min(C, c0 + cluster_chunk)
-        survive = beam_survive_matrix(beam, cs.cmin[c0:c1], cs.cmax[c0:c1])
-        lists, counts = _compact(survive, round_k)
+        with jax.named_scope("shadow_cull"):
+            survive = beam_survive_matrix(beam, cs.cmin[c0:c1],
+                                          cs.cmax[c0:c1])
+        with jax.named_scope("shadow_compact"):
+            lists, counts = _compact(survive, round_k)
+            perm = jnp.argsort(counts)
+            unperm = jnp.argsort(perm)
         dc_chunk = jax.tree_util.tree_map(lambda x: x[c0:c1], dc)
-        perm = jnp.argsort(counts)
-        unperm = jnp.argsort(perm)
-        occ_p = _sweep_occlusion(
-            o_tiles[perm], a_tiles[perm], lists[perm], counts[perm], dc_chunk,
-            cluster_size=L, round_k=round_k, tiles_per_chunk=tiles_per_chunk,
-            t_eps=t_eps, occluded=occluded[perm],
-        )
-        occluded = occ_p[unperm]
+        with jax.named_scope("shadow_sweep"):
+            occ_p = _sweep_occlusion(
+                o_tiles[perm], a_tiles[perm], lists[perm], counts[perm],
+                dc_chunk, cluster_size=L, round_k=round_k,
+                tiles_per_chunk=tiles_per_chunk, t_eps=t_eps,
+                occluded=occluded[perm],
+            )
+            occluded = occ_p[unperm]
 
-    return untile_pixels(occluded, height, width, tile_px) & active
+    occluded = untile_pixels(occluded, hp, wp, tile_px)
+    return _crop_frame(occluded, height, width, hp, wp) & active

@@ -1,6 +1,6 @@
 """DDA cell-walking march over the hashed uniform grid.
 
-TPU-native equivalent of ``bmMarchKernelSpace`` (`Raytracer/Hash.cu:235-302`):
+Equivalent of ``bmMarchKernelSpace`` (`Raytracer/Hash.cu:235-302`):
 each ray walks cells from the eye point — hash the current cell, test its
 faces, else step through the cell via the exit-distance slab test plus a
 pinch-through epsilon — capped at MAX_SEARCH_ITERS.  All rays step in

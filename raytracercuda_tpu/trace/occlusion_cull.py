@@ -5,11 +5,10 @@ tile is a beam: the active origins' AABB swept along the light.  A box
 can occlude only if its projection overlaps the beam's on both axes
 perpendicular to the light AND it is not entirely behind every origin.
 
-One implementation, three consumers — the XLA dense sweep
-(`dense.occlusion_dense`), the Pallas tile-sweep
-(`pallas_sweep.occlusion_tiles_pallas`), and the BVH beam walk
-(`beam.occlusion_beam`).  Divergence between hand-copied versions would
-produce subtle cross-backend shadow mismatches (r2 advisor finding #6).
+One implementation, two consumers — the dense sweep
+(`dense.occlusion_dense`) and the BVH beam walk (`beam.occlusion_beam`).
+Divergence between hand-copied versions would produce subtle
+cross-backend shadow mismatches.
 
 Reference role: the reference has no shadows; the closest precedent is
 its per-node AABB rejection during the march (`BuildTree.cu:405`).
@@ -20,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from .shadow import light_basis
 
@@ -42,8 +42,8 @@ def box_interval(bmin: jnp.ndarray, bmax: jnp.ndarray, axis: jnp.ndarray):
     """Projection interval of AABBs ``[...,3]`` onto a unit ``axis``."""
     c = (bmin + bmax) * 0.5
     h = (bmax - bmin) * 0.5
-    pc = c @ axis
-    ph = h @ jnp.abs(axis)
+    pc = jnp.matmul(c, axis, precision=Precision.HIGHEST)
+    ph = jnp.matmul(h, jnp.abs(axis), precision=Precision.HIGHEST)
     return pc - ph, pc + ph
 
 
@@ -53,24 +53,6 @@ def swept_tile_beams(o_tiles: jnp.ndarray, a_tiles: jnp.ndarray,
     big = jnp.float32(3.0e37)
     omin = jnp.min(jnp.where(a_tiles[..., None], o_tiles, big), axis=1)
     omax = jnp.max(jnp.where(a_tiles[..., None], o_tiles, -big), axis=1)
-    tile_any = jnp.any(a_tiles, axis=1)
-    u_ax, v_ax, l = light_basis(light_dir)
-    ou_lo, ou_hi = box_interval(omin, omax, u_ax)
-    ov_lo, ov_hi = box_interval(omin, omax, v_ax)
-    ol_lo, _ = box_interval(omin, omax, l)
-    return SweptBeam(u_ax=u_ax, v_ax=v_ax, l=l, ou_lo=ou_lo, ou_hi=ou_hi,
-                     ov_lo=ov_lo, ov_hi=ov_hi, ol_lo=ol_lo,
-                     tile_any=tile_any)
-
-
-def swept_tile_beams_planar(o3_tiles: jnp.ndarray, a_tiles: jnp.ndarray,
-                            light_dir: jnp.ndarray) -> SweptBeam:
-    """`swept_tile_beams` for PLANAR ``[T, 3, R]`` origins + ``[T, R]``
-    active — identical beams, lane-major reductions."""
-    big = jnp.float32(3.0e37)
-    act = a_tiles[:, None, :]
-    omin = jnp.min(jnp.where(act, o3_tiles, big), axis=2)    # [T,3]
-    omax = jnp.max(jnp.where(act, o3_tiles, -big), axis=2)
     tile_any = jnp.any(a_tiles, axis=1)
     u_ax, v_ax, l = light_basis(light_dir)
     ou_lo, ou_hi = box_interval(omin, omax, u_ax)

@@ -1,6 +1,6 @@
 """Forward render pipeline: camera rays -> closest hit -> shade -> packed u32.
 
-The TPU-native fusion of the reference's frame path
+The fusion of the reference's frame path
 (`Camera::traceScene` -> `Scene*::march` -> march kernel -> shade,
 `Camera.cpp:85-97`, `SceneTree.cpp:109-127`, `BuildTree.cu:367-499`): one
 jitted function from ray grid to framebuffer, with the acceleration-structure
@@ -13,6 +13,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from ..config import AccelKind, RenderConfig
 from ..models.scene import SceneData
@@ -23,7 +24,7 @@ def rotate_rays(initial_rays: jnp.ndarray, orient: jnp.ndarray) -> jnp.ndarray:
     """Apply the camera orientation to the precomputed ray grid:
     ``dir = orient * initialRays[i]`` (`BuildTree.cu:377-378`).  ``orient``
     is 3x3 column-vector convention, so batched form is ``rays @ orient.T``."""
-    return initial_rays @ orient.T
+    return jnp.matmul(initial_rays, orient.T, precision=Precision.HIGHEST)
 
 
 def trace_hit(
@@ -46,24 +47,7 @@ def trace_hit(
         return trace_brute(scene.positions, scene.faces, origin, direction, config.trace)
     if kind == AccelKind.CLUSTER:
         tc = config.trace
-        if (
-            frame_hw is not None
-            and common_origin is not None
-            and frame_hw[0] % tc.dense_tile_px == 0
-            and frame_hw[1] % tc.dense_tile_px == 0
-        ):
-            from .frame import use_pallas
-
-            if use_pallas(config, accel.cluster_size):
-                from .pallas_sweep import segment_blocks, trace_dense_pallas
-
-                blocks = (accel.tri_blocks if accel.tri_blocks is not None
-                          else segment_blocks(accel))
-                return trace_dense_pallas(
-                    accel, blocks, common_origin, direction,
-                    height=frame_hw[0], width=frame_hw[1],
-                    tile_px=tc.dense_tile_px, trace_cfg=tc,
-                )
+        if frame_hw is not None and common_origin is not None:
             from .dense import trace_dense
 
             return trace_dense(

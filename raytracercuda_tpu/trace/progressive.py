@@ -2,7 +2,7 @@
 
 The reference allocates a progressive-refinement scene
 (`Raytracer/SceneProgressive.cpp`) whose march never ran (`Trace2.cu`
-launcher stubbed).  This module finishes the capability TPU-first:
+launcher stubbed).  This module finishes the capability:
 successive frames sample jittered sub-pixel ray grids and accumulate a
 running mean.  Sample positions come from the deterministic Halton (2,3)
 sequence — no RNG state, so accumulation is bit-stable run-to-run and

@@ -2,7 +2,7 @@
 
 The reference's extension point for shading is a device function pointer,
 ``bmHitCallback`` (`Raytracer/SharedTypes.h:37`), e.g. the app-side normal
-shader ``bmShadeNormal`` (`TestProgram/Program.cpp:64-70`).  The TPU-native
+shader ``bmShadeNormal`` (`TestProgram/Program.cpp:64-70`).  The JAX
 form of the same extension point is an ordinary JAX function taking the
 scene and a ``Hit`` record — composable, jittable, differentiable.
 

@@ -2,7 +2,7 @@
 
 The reference has no shadow rays at all (its march shades the primary hit
 only, `Raytracer/BuildTree.cu:486-496`); shadows are a capability this
-framework adds on the way to differentiable rendering.  The first TPU
+framework adds on the way to differentiable rendering.  The first
 implementation reused the beam traverser per shadow tile, but shadow rays
 for a directional light all share ONE direction — which collapses the
 problem from 3D traversal to 2D point-in-triangle lookup:
@@ -16,7 +16,7 @@ problem from 3D traversal to 2D point-in-triangle lookup:
 
 Build = project, rasterize 2D AABBs into cells, sort, CSR — the same
 deterministic sort/scan recipe as `accel/grid.py`.  Query = per-ray CSR
-slice + dense Möller–Trumbore along the shared direction, a pure VPU
+slice + dense Möller–Trumbore along the shared direction, an elementwise
 sweep with contiguous `dynamic_slice` triangle reads (no row gathers).
 
 Exactness: a triangle that intersects a shadow ray covers the ray
@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from ..config import TraceConfig
 from ..ops.math import tri_intersect
@@ -104,7 +105,9 @@ def build_shadow_grid(
     v2 = positions[faces[:, 2]]
 
     def proj2(p):  # [.,3] -> [.,2]
-        return jnp.stack([p @ u, p @ v], axis=-1)
+        return jnp.stack([jnp.matmul(p, u, precision=Precision.HIGHEST),
+                          jnp.matmul(p, v, precision=Precision.HIGHEST)],
+                         axis=-1)
 
     p0, p1, p2 = proj2(v0), proj2(v1), proj2(v2)
     tmin = jnp.minimum(p0, jnp.minimum(p1, p2))  # [F,2]
@@ -186,7 +189,10 @@ def occlusion_grid(
     # grid's edge is covered only by triangles whose (clipped) AABB lands
     # in that boundary cell, and a point strictly outside is covered by no
     # triangle at all — clamping is exact, never lossy.
-    p = jnp.stack([origins @ grid.u_axis, origins @ grid.v_axis], axis=-1)
+    p = jnp.stack(
+        [jnp.matmul(origins, grid.u_axis, precision=Precision.HIGHEST),
+         jnp.matmul(origins, grid.v_axis, precision=Precision.HIGHEST)],
+        axis=-1)
     c = jnp.clip(
         jnp.floor((p - grid.uv_min) * grid.inv_cell), 0, res - 1
     ).astype(jnp.int32)

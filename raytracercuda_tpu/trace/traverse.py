@@ -1,8 +1,8 @@
-"""Stackless skip-link BVH traversal — the TPU-native march kernel.
+"""Stackless skip-link BVH traversal — the vectorized march kernel.
 
 Replaces the reference's per-thread 38-deep-stack kd-tree descent
-(`Raytracer/BuildTree.cu:367-499`).  A per-ray stack does not vectorize on
-a TPU; instead every ray carries ONE integer — its current node in the
+(`Raytracer/BuildTree.cu:367-499`).  A per-ray stack does not vectorize;
+instead every ray carries ONE integer — its current node in the
 threaded (hit-link/skip-link) LBVH — and a whole ray TILE steps in
 lockstep: one packed-row gather per node visit, slab test, advance to
 hit-link or skip-link, Möller-Trumbore the leaf's pre-sorted triangles,
@@ -11,7 +11,7 @@ keep the closest.
 Performance structure (vs the naive formulation):
   * two row gathers per step (a [T,6] AABB row + a [T,2] int link row)
     instead of ~7 separate gathers — links stay integer because float rows
-    corrupt int payloads on TPU (NaN canonicalization, denormal flush);
+    can corrupt int payloads (NaN canonicalization, denormal flush);
   * leaf triangles pre-sorted in Morton order (`Bvh.packed_tris`) — the
     leaf sweep gathers contiguous rows with NO face-table indirection; the
     winning sorted slot maps to a face id once, at the end;
@@ -52,7 +52,7 @@ def _pad_tile(origin, direction, tile):
 
 def _gather_node(bvh, nid):
     """One AABB row + one link row per node visit (links live in their own
-    int32 array: float rows corrupt int payloads on TPU via NaN
+    int32 array: float rows can corrupt int payloads via NaN
     canonicalization / denormal flush)."""
     row = bvh.packed_nodes[nid]
     links = bvh.packed_links[nid]

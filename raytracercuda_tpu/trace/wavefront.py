@@ -8,13 +8,13 @@ per-ray hit clusters (`bmFaceTestKernel`, ``bmRayFaceHitCluster[16]``,
 callback (`bmFindClosestHit`, `Trace2.cu:139-176`) — but its host launcher
 is stubbed out (`Trace2.cu:188-215`, `SceneProgressive.cpp:27-77`).
 
-This module FINISHES that design the TPU way, in rounds:
+This module FINISHES that design, in rounds:
 
   Stage A (expand): every ray walks the skip-link BVH until it has queued
     up to Q leaf nodes (the bounded hit-cluster analog) or exhausted the
     tree — pure gather/compare lockstep work.
   Stage B (test):   all queued (ray x leaf-face) pairs are Möller-Trumbore
-    tested as one big ``[R, Q*K]`` batch — maximal VPU occupancy.
+    tested as one big ``[R, Q*K]`` batch.
   Stage C (reduce): per-ray min-reduction updates the closest hit, which
     then PRUNES the next round's expansion (box_d < best_t).
 
@@ -51,10 +51,8 @@ def trace_wavefront(
     identical to `trace_bvh` (validated against the brute-force oracle).
 
     Rays are processed in ``wf_cfg.ray_chunk`` blocks: stage B's batched
-    face test materializes [rays, Q*K, 3] intermediates whose minor dim
-    pads to 128 lanes — at full-frame ray counts that exceeded HBM
-    (34 GB requested at 512²; the whole-bundle formulation only ever ran
-    at test scale before r4)."""
+    face test materializes [rays, Q*K, 3] intermediates, which at
+    full-frame ray counts would not fit in device memory."""
     if origin.ndim == 1:
         origin = jnp.broadcast_to(origin[None, :], direction.shape)
     num_rays = direction.shape[0]

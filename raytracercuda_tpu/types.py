@@ -1,8 +1,8 @@
-"""Core SoA value types for the TPU ray tracer.
+"""Core SoA value types for the ray tracer.
 
 The reference passes AoS device structs across the host/device ABI
 (`Raytracer/SharedTypes.h:10-37`: ``StaticMeshData``, ``bmFace``,
-``bmRayFaceHitResult``).  TPU-first, everything is a structure-of-arrays
+``bmRayFaceHitResult``).  Here everything is a structure-of-arrays
 pytree of jnp arrays: rays are ``[R,3]`` bundles, hit records are flat
 ``[R]`` component arrays, and faces are rows of an ``[F,4]`` int table
 (3 vertex indices + mesh index — the exact payload of ``bmFace::m_index``,

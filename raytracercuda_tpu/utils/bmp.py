@@ -55,3 +55,20 @@ def read_bmp(path: str) -> np.ndarray:
     if flip:
         rgb = rgb[::-1]
     return np.ascontiguousarray(rgb).astype(np.float32) / 255.0
+
+
+def write_bmp(path: str, rgb: np.ndarray) -> None:
+    """Encode ``[H,W,3]`` float RGB in [0,1] as an uncompressed 24-bit BMP
+    (bottom-up rows) — the inverse of `read_bmp` up to 8-bit rounding."""
+    img = np.clip(np.round(np.asarray(rgb, np.float64) * 255.0), 0, 255)
+    img = img.astype(np.uint8)[::-1, :, ::-1]  # bottom-up, BGR
+    height, width = img.shape[:2]
+    row_stride = (width * 3 + 3) & ~3
+    rows = np.zeros((height, row_stride), np.uint8)
+    rows[:, : width * 3] = img.reshape(height, width * 3)
+    pixels = rows.tobytes()
+    header = struct.pack("<2sIHHI", b"BM", 54 + len(pixels), 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, width, height, 1, 24, 0,
+                       len(pixels), 2835, 2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(header + info + pixels)

@@ -2,7 +2,7 @@
 
 The reference has no persistence at all — every run rebuilds all state
 (`SceneTree::updateGPUScene` per frame, nothing survives the process,
-SURVEY.md §5 "Checkpoint/resume: none").  A production TPU framework
+SURVEY.md §5 "Checkpoint/resume: none").  A production framework
 needs it for two long-running workloads this package ships:
 
   * **inverse rendering** (`parallel/shard.make_train_step`): optimizer

@@ -1,8 +1,10 @@
-"""Locate and stage the reference Content meshes for tests/benchmarks.
+"""Locate and stage Content meshes (suzanne.obj, f16.obj + BMP textures,
+bunny.zip — the reference repo's `Content/` layout) for the apps.
 
-The benchmark meshes (suzanne.obj, f16.obj + BMP textures, bunny.zip)
-ship with the reference repo (`/root/reference/Content`, read-only).
-Zipped meshes are extracted into a local cache directory.
+The directory is ``$RAYTRACER_CONTENT`` or ``<repo>/content``.  Zipped
+meshes are extracted into a local cache directory.  Benchmarks and tests
+do not read content: they render seeded stand-ins
+(`models/procedural.py`) or write their own fixtures.
 """
 
 from __future__ import annotations
@@ -12,7 +14,6 @@ import zipfile
 
 CONTENT_DIRS = [
     os.environ.get("RAYTRACER_CONTENT", ""),
-    "/root/reference/Content",
     os.path.join(os.path.dirname(__file__), "..", "..", "content"),
 ]
 

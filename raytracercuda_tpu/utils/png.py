@@ -1,8 +1,8 @@
 """Minimal dependency-free PNG writer.
 
 The reference displays frames through a CUDA-mapped OpenGL texture buffer
-(`Raytracer/GLinterop.h`, `RenderTarget.cpp`).  On a TPU pod there is no
-display: the framebuffer is gathered to host and written as PNG — this is
+(`Raytracer/GLinterop.h`, `RenderTarget.cpp`).  Without a display, the
+framebuffer is gathered to host and written as PNG — this is
 the presentation layer replacement.
 """
 

@@ -1,43 +1,38 @@
 #!/usr/bin/env python
-"""Exercise every BASELINE.json config at its full scale on the chip.
+"""Time every BASELINE.json config at its full scale on one GPU.
 
-Configs (BASELINE.json "configs"):
-  1. Gradient/RTClear full-frame fill, 256x256, no geometry
-  2. Textured quad + suzanne.obj, 256x256 primary, brute-force intersect
-  3. bunny.obj 512x512 LBVH-equivalent build + traversal + Lambert + shadows
+Configs (BASELINE.json "configs"), each on a seeded stand-in scene with the
+reference mesh's face count (`models/procedural.py`):
+  1. RTClear + Gradient full-frame fill, 256x256, no geometry
+  2. Quad + suzanne stand-in (15,488 faces), 256x256 primary, brute force
+  3. Bunny stand-in 512x512 cluster build + traversal + Lambert + shadows
      (== bench.py's headline number)
-  4. F16 (textured) + armadillo stand-in (345,944 tris), 1024x1024,
-     progressive accumulation, differentiable texture/vertex grads
-  5. tyra + armadillo + bunny stand-in multi-mesh (~515k tris), 1080p,
-     multi-bounce.  (The N>=2-host sharding of this config is exercised by
-     scripts/bench_scaling.py and tests/test_parallel.py on the CPU mesh —
-     one real chip is all this box has.)
+  4. Textured f16 stand-in + armadillo stand-in (350,000 faces),
+     1024x1024, progressive accumulation, texture + vertex gradients
+  5. Bunny + armadillo + tyra stand-ins (515,576 faces), 1080p, two
+     mirror bounces
 
-Armadillo/tyra are referenced by the upstream repo but not shipped
-(`Program.cpp:142-145`); procedural stand-ins match their face counts.
-Writes CONFIGS.json with one record per config (ms per frame / step).
+    python scripts/bench_configs.py [N ...]   # all configs, or only N...
+
+Prints the card's name and power limit, then one JSON line per config.
+Any failure raises and exits non-zero; so does a run without a GPU.
 """
 import json
-import os, sys, time
+import os
+import sys
+import time
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-from raytracercuda_tpu import AccelKind, RenderConfig, Scene
-from raytracercuda_tpu.accel.clusters import build_clusters
-from raytracercuda_tpu.config import TraceConfig
-from raytracercuda_tpu.models.camera import camera_ray_grid
-from raytracercuda_tpu.models.loader import load_model
-from raytracercuda_tpu.models.procedural import bumpy_sphere_mesh
-from raytracercuda_tpu.utils import content
-
-RESULTS = []
+from raytracercuda_tpu import AccelKind, RenderConfig  # noqa: E402
+from raytracercuda_tpu.accel.clusters import build_clusters  # noqa: E402
+from raytracercuda_tpu.models import procedural  # noqa: E402
+from raytracercuda_tpu.models.camera import (  # noqa: E402
+    camera_ray_grid, framing_eye)
 
 
 def timed(fn, *a, iters=5, **kw):
@@ -51,38 +46,28 @@ def timed(fn, *a, iters=5, **kw):
 
 
 def record(name, **kv):
-    rec = {"config": name, **kv}
-    RESULTS.append(rec)
-    print(json.dumps(rec), flush=True)
+    print(json.dumps({"config": name, **kv}), flush=True)
 
 
-def frame_eye(data, dist=2.0):
-    lo = np.asarray(data.positions.min(axis=0))
-    hi = np.asarray(data.positions.max(axis=0))
-    center = (lo + hi) / 2
-    extent = float(np.max(hi - lo))
-    return jnp.asarray(center - np.array([0, 0, dist * extent]), jnp.float32), extent
-
-
-# --- 1: full-frame fill kernels ---------------------------------------------
+# --- 1: full-frame fill -------------------------------------------------------
 def config1():
     from raytracercuda_tpu.ops.clear import clear_buffer
     from raytracercuda_tpu.ops.gradient import color_gradient
 
-    ms_c, _ = timed(lambda: clear_buffer(256 * 256, jnp.uint32(0xFF00FF00)), iters=20)
+    ms_c, _ = timed(lambda: clear_buffer(256 * 256, 0xFF00FF00), iters=20)
     ms_g, _ = timed(lambda: color_gradient(256, 256), iters=20)
-    record("1 clear+gradient 256x256", clear_ms=round(ms_c, 3),
-           gradient_ms=round(ms_g, 3))
+    record("1 clear+gradient 256x256", clear_ms=ms_c, gradient_ms=ms_g)
 
 
-# --- 2: quad + suzanne, brute force ------------------------------------------
+# --- 2: quad + suzanne stand-in, brute force ----------------------------------
 def config2():
     import raytracercuda_tpu as rt
-    from raytracercuda_tpu.models.procedural import quad_mesh
 
     scene = rt.Scene.create(rt.RenderConfig(accel=rt.AccelKind.BRUTE))
-    load_model(content.find("suzanne.obj"), scene)
-    scene.add_mesh(quad_mesh(z=2.5))
+    scene.add_mesh(procedural.bumpy_sphere_mesh(15488, radius=0.8,
+                                                center=(0.0, 0.0, 0.0),
+                                                seed=5))
+    scene.add_mesh(procedural.quad_mesh(z=2.5))
     cam = rt.Camera.create()
     cam.set_initial_rays(256, 256, -1, 1, -1, 1, 1)
     rtg = rt.RenderTarget.create(256, 256)
@@ -92,67 +77,55 @@ def config2():
 
     def frame():
         err = cam.trace_scene(eye, orient, scene, rtg)
-        assert err == 0
+        if err != 0:
+            raise RuntimeError(f"trace_scene returned {err}")
         return rtg.buffer
 
     ms, buf = timed(frame, iters=3)
     frac = float(np.asarray((buf != np.uint32(255 << 8))).mean())
-    record("2 quad+suzanne 256x256 brute", frame_ms=round(ms, 2),
-           rays_per_s=round(256 * 256 / ms * 1e3, 1), hit_frac=round(frac, 4))
+    record("2 quad+suzanne stand-in 256x256 brute", frame_ms=ms,
+           rays_per_s=256 * 256 / ms * 1e3, hit_frac=frac)
 
 
-# --- 3: bunny 512x512 (the headline bench) -----------------------------------
+# --- 3: bunny stand-in 512x512 (the headline bench) ---------------------------
 def config3():
-    import subprocess
+    from bench import measure
 
-    out = subprocess.run([sys.executable, os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "bench.py")], capture_output=True, text=True, timeout=1800)
-    line = [l for l in out.stdout.splitlines() if l.startswith("{")][-1]
-    rec = json.loads(line)
-    record("3 bunny 512x512 primary+shadow", **rec)
+    record("3 bunny stand-in 512x512 primary+shadow", **measure())
 
 
-# --- 4: textured F16 + armadillo stand-in, 1024^2, progressive + grads -------
+# --- 4: textured f16 + armadillo stand-ins, 1024^2, progressive + grads -------
 def config4():
     from raytracercuda_tpu.diff.render_grad import l2_image_loss
     from raytracercuda_tpu.trace.progressive import (
         init_progressive, progressive_step)
 
     config = RenderConfig(accel=AccelKind.CLUSTER)
-    scene = Scene.create(config)
-    load_model(content.find("f16.obj"), scene)
-    scene.add_mesh(bumpy_sphere_mesh(345944, radius=4.0, center=(0, -1, 14),
-                                     seed=2))
-    data = scene.data()
+    data = procedural.textured_scene(config).data()
     accel = build_clusters(data.positions, data.faces, config.cluster)
-    jax.block_until_ready(accel)
-    eye, extent = frame_eye(data)
-    orient = jnp.eye(3)
+    eye = framing_eye(data.positions, dist=1.0)
+    orient = jnp.eye(3, dtype=jnp.float32)
 
     W = H = 1024
     state = init_progressive(W * H)
     step = lambda s: progressive_step(s, data, accel, eye, orient, W, H,
                                       config, with_shadows=True)
     ms, state = timed(step, state, iters=3)
-    img = jax.block_until_ready(state.image)
 
-    # Differentiable texture + vertex grads through the same frame.
     rays = camera_ray_grid(W, H)
     target = jnp.zeros((W * H, 3), jnp.float32)
 
     def loss_fn(positions, textures):
         s = data._replace(positions=positions, textures=textures)
         return l2_image_loss(s, accel, rays, eye, orient, target, config,
-                             frame_hw=(H, W))
+                             frame_hw=(H, W), with_shadows=True)
 
     gfn = jax.jit(jax.grad(loss_fn, argnums=(0, 1)))
     ms_g, (gp, gt) = timed(gfn, data.positions, data.textures, iters=2)
     gp, gt = np.asarray(gp), np.asarray(gt)
-    record("4 f16+armadillo 1024x1024 progressive+grads",
-           progressive_step_ms=round(ms, 2),
-           rays_per_s=round(W * H / ms * 1e3, 1),
-           grad_step_ms=round(ms_g, 2),
+    record("4 f16+armadillo stand-ins 1024x1024 progressive+grads",
+           progressive_step_ms=ms, rays_per_s=W * H / ms * 1e3,
+           grad_step_ms=ms_g,
            grad_pos_finite=bool(np.isfinite(gp).all()),
            grad_pos_nonzero=bool((gp != 0).any()),
            grad_tex_finite=bool(np.isfinite(gt).all()),
@@ -160,70 +133,40 @@ def config4():
            faces=int(data.faces.shape[0]))
 
 
-# --- 5: tyra+armadillo+bunny multi-mesh, 1080p, multi-bounce ------------------
+# --- 5: multi-mesh stand-ins, 1080p, two bounces ------------------------------
 def config5():
     from raytracercuda_tpu.trace.bounce import render_bounces
     from raytracercuda_tpu.trace.pipeline import rotate_rays
 
-    # Default 16px tiles; the Pallas route edge-pads 1080 -> 1088 rows
-    # (8px tiles measured 4x the per-tile fixed cost at this frame size).
     config = RenderConfig(accel=AccelKind.CLUSTER)
-    scene = Scene.create(config)
-    load_model(content.find("bunny.obj"), scene)
-    scene.add_mesh(bumpy_sphere_mesh(345944, radius=0.9, center=(1.6, 0.8, 0.2),
-                                     seed=2))
-    scene.add_mesh(bumpy_sphere_mesh(100002, radius=0.7, center=(-1.5, 0.6, -0.3),
-                                     seed=3))
-    data = scene.data()
-    # Reflective materials so "2-bounce" means live secondary rays (r4's
-    # zero-reflectivity scene made the bounce passes no-ops).
-    nm = data.reflectivity.shape[0]
-    data = data._replace(reflectivity=jnp.linspace(0.3, 0.6, nm))
+    data = procedural.multi_mesh_scene(config).data()
     accel = build_clusters(data.positions, data.faces, config.cluster)
-    jax.block_until_ready(accel)
-    eye, extent = frame_eye(data, dist=1.2)
+    eye = framing_eye(data.positions, dist=1.2)
     W, H = 1920, 1080
-    rays = camera_ray_grid(W, H)
-    dirs = jax.jit(rotate_rays)(rays, jnp.eye(3))
+    dirs = rotate_rays(camera_ray_grid(W, H), jnp.eye(3, dtype=jnp.float32))
 
-    fn = jax.jit(lambda d: render_bounces(accel, data, eye, d, H, W, config,
-                                          num_bounces=2))
+    fn = lambda d: render_bounces(accel, data, eye, d, H, W, config,
+                                  num_bounces=2)
     ms, img = timed(fn, dirs, iters=3)
-    active = float(np.asarray(jnp.mean(
-        (jnp.abs(img - render_bounces(accel, data, eye, dirs, H, W, config,
-                                      num_bounces=0)) > 1e-6).any(-1)
-        .astype(jnp.float32))))
-    record("5 multi-mesh 1080p 2-bounce",
-           frame_ms=round(ms, 2),
-           rays_per_s=round(W * H / ms * 1e3, 1),
-           bounce_changed_px_frac=round(active, 4),
+    img0 = render_bounces(accel, data, eye, dirs, H, W, config,
+                          num_bounces=0)
+    changed = float(jnp.mean(jnp.any(jnp.abs(img - img0) > 1e-6, axis=-1)))
+    record("5 multi-mesh stand-ins 1080p 2-bounce", frame_ms=ms,
+           rays_per_s=W * H / ms * 1e3, bounce_changed_px_frac=changed,
            faces=int(data.faces.shape[0]))
 
 
 def main():
+    from raytracercuda_tpu.utils.compile_cache import configure_compile_cache
+    from raytracercuda_tpu.utils.device import card_line, require_gpu
+
+    configure_compile_cache()
+    device = require_gpu()
+    print("card:", card_line(), "| device:", json.dumps(device), flush=True)
     only = set(sys.argv[1:])
     for i, fn in enumerate((config1, config2, config3, config4, config5), 1):
-        if only and str(i) not in only:
-            continue
-        try:
+        if not only or str(i) in only:
             fn()
-        except Exception as e:  # keep going; report the failure
-            record(f"{i} FAILED", error=f"{type(e).__name__}: {e}")
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "CONFIGS.json")
-    # Subset reruns merge into the existing file by config number so a
-    # partial run never drops the other configs' records.
-    merged = {}
-    if only and os.path.exists(path):
-        with open(path) as f:
-            for rec in json.load(f):
-                merged[rec["config"].split()[0]] = rec
-    for rec in RESULTS:
-        merged[rec["config"].split()[0]] = rec
-    with open(path, "w") as f:
-        json.dump(sorted(merged.values(), key=lambda r: r["config"]),
-                  f, indent=1)
-    print("wrote", path)
 
 
 if __name__ == "__main__":

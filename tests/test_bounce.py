@@ -159,52 +159,3 @@ def test_energy_conserving_no_background_double_count():
     # ambient + (1-ambient)*ndotl <= 1 and bg = 1: every path weight sums
     # to 1 so nothing exceeds 1 even with r = 1 everywhere.
     assert rgb.max() <= 1.0 + 1e-5
-
-
-# ---------------------------------------------------------------------------
-# Pallas bounce path (`trace/pallas_bounce.py`): force the kernels on (CPU
-# runs them through the interpreter) and compare against the same brute
-# oracle as the XLA path.
-# ---------------------------------------------------------------------------
-
-from raytracercuda_tpu.config import TraceConfig
-
-
-def _pallas_config():
-    return RenderConfig(accel=AccelKind.CLUSTER,
-                        trace=TraceConfig(use_pallas_sweep=True))
-
-
-def _compare_pallas(num_bounces, side=32, seed=3, with_shadows=False):
-    scene = mirror_box_scene(seed=seed)
-    config = _pallas_config()
-    cs = build_clusters(scene.positions, scene.faces,
-                        ClusterConfig(cluster_size=128))
-    dirs = camera_ray_grid(side, side)
-    eye = jnp.zeros(3)
-    got = render_bounces(cs, scene, eye, dirs, side, side, config,
-                         num_bounces=num_bounces, with_shadows=with_shadows)
-    want = render_bounces(cs, scene, eye, dirs, side, side, config,
-                          num_bounces=num_bounces, with_shadows=with_shadows,
-                          use_brute=True)
-    got, want = np.asarray(got), np.asarray(want)
-    close = np.isclose(got, want, rtol=1e-4, atol=1e-4).all(axis=-1)
-    assert close.mean() > 0.99, f"only {close.mean():.4f} pixels match"
-    return got, want
-
-
-def test_pallas_one_bounce_matches_oracle():
-    got, _ = _compare_pallas(num_bounces=1)
-    assert not np.allclose(got, _nobounce_frame(), atol=1e-6)
-
-
-def test_pallas_two_bounces_match_oracle():
-    _compare_pallas(num_bounces=2)
-
-
-def test_pallas_bounce_with_shadows_matches_oracle():
-    _compare_pallas(num_bounces=1, seed=5, with_shadows=True)
-
-
-def test_pallas_zero_bounces_matches_oracle():
-    _compare_pallas(num_bounces=0, with_shadows=True)

@@ -1,87 +1,64 @@
-"""FrameRenderer product path: the Pallas frame and the XLA dense frame
-agree pixel-for-pixel (packed u32), with and without shadows."""
-
-import dataclasses
+"""FrameRenderer product path against the frame composed from the
+brute-force oracle (`FrameRenderer.oracle`): same face ids, same shadow
+mask, packed channels within one quantization step."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from raytracercuda_tpu.accel.clusters import build_clusters
 from raytracercuda_tpu.config import AccelKind, ClusterConfig, RenderConfig
 from raytracercuda_tpu.models.camera import camera_ray_grid
-from raytracercuda_tpu.models.scene import SceneData
-from raytracercuda_tpu.trace.frame import FrameRenderer, use_pallas
+from raytracercuda_tpu.trace.frame import FrameRenderer
 
-from test_pallas_sweep import sphere_scene
+from helpers import make_scene
 
-
-def make_scene(num_faces=900, seed=17):
-    rng = np.random.default_rng(seed)
-    positions, faces = sphere_scene(num_faces, seed=seed)
-    nv = positions.shape[0]
-    return SceneData(
-        positions=positions, faces=faces,
-        attrs={1: jnp.asarray(rng.standard_normal((nv, 3)).astype(np.float32))},
-        mesh_material=jnp.asarray([0], jnp.int32),
-        albedo=jnp.asarray([[0.8, 0.6, 0.4]], jnp.float32),
-        texture_id=jnp.asarray([-1], jnp.int32),
-        textures=jnp.zeros((0, 4, 4, 3), jnp.float32),
-    )
+CONFIG = RenderConfig(accel=AccelKind.CLUSTER)
 
 
-def configs():
-    base = RenderConfig(accel=AccelKind.CLUSTER)
-    pallas = dataclasses.replace(
-        base, trace=dataclasses.replace(base.trace, use_pallas_sweep=True))
-    xla = dataclasses.replace(
-        base, trace=dataclasses.replace(base.trace, use_pallas_sweep=False))
-    return pallas, xla
-
-
-def test_use_pallas_resolution():
-    pallas_cfg, xla_cfg = configs()
-    assert use_pallas(pallas_cfg, 128)
-    assert not use_pallas(pallas_cfg, 16)  # misaligned segments
-    assert not use_pallas(xla_cfg, 128)
-    auto = RenderConfig(accel=AccelKind.CLUSTER)
-    assert auto.trace.use_pallas_sweep is None
-    assert not use_pallas(auto, 128)  # CPU backend in tests -> XLA
-
-
-def test_frame_renderer_paths_agree():
-    scene = make_scene()
+def _check_against_oracle(scene, height, width, shadows, cluster_size=128):
     accel = build_clusters(scene.positions, scene.faces,
-                           ClusterConfig(cluster_size=128))
-    assert accel.tri_blocks is not None  # cached kernel operand
-    pallas_cfg, xla_cfg = configs()
+                           ClusterConfig(cluster_size=cluster_size))
     eye = jnp.zeros(3, jnp.float32)
     orient = jnp.eye(3)
-    rays = camera_ray_grid(64, 64)
+    rays = camera_ray_grid(width, height)
+    renderer = FrameRenderer(scene, accel, CONFIG, height, width,
+                             shadows=shadows)
+    img = np.asarray(renderer.render(eye, orient, rays))
+    hit, shadow = renderer.hits(eye, orient, rays)
+    ohit, oshadow, oimg = renderer.oracle(eye, orient, rays)
+    assert img.shape == (height * width,)
+    np.testing.assert_array_equal(np.asarray(hit.face),
+                                  np.asarray(ohit.face))
+    if shadows:
+        np.testing.assert_array_equal(np.asarray(shadow),
+                                      np.asarray(oshadow))
+        assert np.asarray(oshadow).any()  # the light is actually blocked
+    else:
+        assert shadow is None and oshadow is None
+    # Packed u8 channels may differ by 1 where the two routes' fp rounding
+    # straddles a quantization boundary (face tables vs vertex gathers).
+    a = img.view(np.uint8).reshape(-1, 4).astype(np.int32)
+    b = np.asarray(oimg).view(np.uint8).reshape(-1, 4).astype(np.int32)
+    np.testing.assert_allclose(a, b, atol=1)
+    assert (img != img[0]).any()  # scene actually visible
 
-    a = FrameRenderer(scene, accel, pallas_cfg, 64, 64)
-    b = FrameRenderer(scene, accel, xla_cfg, 64, 64)
-    assert a.pallas and not b.pallas
-    img_a = np.asarray(a.render(eye, orient, rays))
-    img_b = np.asarray(b.render(eye, orient, rays))
-    # Same winners everywhere; packed u8 channels may differ by 1 where
-    # the two paths' fp rounding straddles a quantization boundary.
-    ba = img_a.view(np.uint8).reshape(-1, 4).astype(np.int32)
-    bb = img_b.view(np.uint8).reshape(-1, 4).astype(np.int32)
-    np.testing.assert_allclose(ba, bb, atol=1)
-    assert (img_a != img_a[0]).any()  # scene actually visible
+
+@pytest.mark.parametrize("shadows", [True, False])
+@pytest.mark.parametrize("seed", [17, 23, 31, 47])
+def test_frame_matches_oracle(seed, shadows):
+    _check_against_oracle(make_scene(seed=seed), 64, 64, shadows)
 
 
-def test_frame_renderer_no_shadows():
-    scene = make_scene(seed=23)
-    accel = build_clusters(scene.positions, scene.faces,
-                           ClusterConfig(cluster_size=128))
-    pallas_cfg, xla_cfg = configs()
-    eye = jnp.zeros(3, jnp.float32)
-    orient = jnp.eye(3)
-    rays = camera_ray_grid(64, 64)
-    a = FrameRenderer(scene, accel, pallas_cfg, 64, 64, shadows=False)
-    b = FrameRenderer(scene, accel, xla_cfg, 64, 64, shadows=False)
-    ba = np.asarray(a.render(eye, orient, rays)).view(np.uint8)
-    bb = np.asarray(b.render(eye, orient, rays)).view(np.uint8)
-    np.testing.assert_allclose(ba.astype(np.int32), bb.astype(np.int32),
-                               atol=1)
+@pytest.mark.parametrize("height,width", [(40, 56), (24, 64)])
+def test_frame_edge_pads_partial_tiles(height, width):
+    """1080p-shaped frames (height or width not a multiple of the 16 px
+    tile, like 1080 = 67*16 + 8) are edge-padded and cropped."""
+    assert height % CONFIG.trace.dense_tile_px
+    _check_against_oracle(make_scene(seed=5), height, width, shadows=True)
+
+
+def test_frame_small_clusters():
+    """Any cluster size serves the frame (no lane-alignment rule)."""
+    _check_against_oracle(make_scene(seed=9), 48, 48, shadows=True,
+                          cluster_size=16)

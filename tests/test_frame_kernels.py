@@ -1,9 +1,13 @@
-"""Full-frame Pallas kernel tests (clear / gradient / blob) against scalar
+"""Full-frame fill tests (clear / gradient / blob) against scalar
 replications of the reference kernels (`RTClear.cu`, `Gradient.cu`,
-`Blob.cu`)."""
+`Blob.cu`).  `chip_smoke.py` compares the card's output with the same
+scalar references."""
 
 import numpy as np
+import pytest
 
+from raytracercuda_tpu import Camera, RenderTarget
+from raytracercuda_tpu.errors import ERROR_ALL_FINE, ERROR_NO_RENDER_TARGET
 from raytracercuda_tpu.ops.blob import blob
 from raytracercuda_tpu.ops.clear import clear_buffer
 from raytracercuda_tpu.ops.gradient import color_gradient
@@ -12,6 +16,7 @@ from raytracercuda_tpu.ops.gradient import color_gradient
 def test_clear_fills_value():
     buf = np.asarray(clear_buffer(1000, 0x00FF00FF))
     assert buf.shape == (1000,)
+    assert buf.dtype == np.uint32
     assert (buf == 0x00FF00FF).all()
 
 
@@ -20,6 +25,21 @@ def test_clear_nonaligned_sizes():
         buf = np.asarray(clear_buffer(n, 7))
         assert buf.shape == (n,)
         assert (buf == 7).all()
+
+
+@pytest.mark.parametrize("width,height,value",
+                         [(64, 48, 0xFF00FF00), (33, 7, 0), (1, 1, 0xFFFFFFFF)])
+def test_camera_clear_fills_render_target(width, height, value):
+    """`Camera.clear` (`Camera.cpp:74-83`) fills the target's buffer."""
+    target = RenderTarget.create(width, height)
+    assert Camera.create().clear(target, value) == ERROR_ALL_FINE
+    buf = np.asarray(target.buffer)
+    assert buf.shape == (width * height,) and buf.dtype == np.uint32
+    assert (buf == np.uint32(value)).all()
+
+
+def test_camera_clear_without_target():
+    assert Camera.create().clear(None, 0) == ERROR_NO_RENDER_TARGET
 
 
 def scalar_gradient(size):
@@ -71,12 +91,10 @@ def test_gradient_six_bands():
     assert (buf[2 * block] & 0x00FFFF00) == 0
 
 
-def test_blob_matches_scalar():
-    """Scalar transcription of `Blob.cu:27-58`.  The frame must be wider
-    than the 100px SDF square so the edge/background branches are hit."""
-    w, h, t = 320, 8, 1.25
+def scalar_blob(w, h, t):
+    """Transcription of `Blob.cu:27-58`: ``[w*h]`` packed u32 at time t."""
 
-    def scalar_blob(i):
+    def pixel(i):
         ux = (i % w) - w // 2
         uy = (i // w) - h // 2
         s, c = np.sin(t), np.cos(t)
@@ -92,8 +110,15 @@ def test_blob_matches_scalar():
         pack = lambda x: np.uint32(np.clip(x * 255, 0, 255))
         return (pack(mr) << np.uint32(16)) | (pack(mg) << np.uint32(8)) | pack(mb)
 
+    return np.array([pixel(i) for i in range(w * h)], np.uint32)
+
+
+def test_blob_matches_scalar():
+    """The frame must be wider than the 100px SDF square so the
+    edge/background branches are hit."""
+    w, h, t = 320, 8, 1.25
     got = np.asarray(blob(w, h, t))
-    want = np.array([scalar_blob(i) for i in range(w * h)], np.uint32)
+    want = scalar_blob(w, h, t)
     # float32 vs float64 trig: allow off-by-one in the 8-bit channels.
     gr = np.stack([(got >> 16) & 0xFF, (got >> 8) & 0xFF, got & 0xFF])
     wr = np.stack([(want >> 16) & 0xFF, (want >> 8) & 0xFF, want & 0xFF])
@@ -102,7 +127,7 @@ def test_blob_matches_scalar():
 
 def test_blob_time_is_traced_not_static():
     # Two different times must produce different frames without retracing
-    # (time is an SMEM scalar, not a static arg).  The frame must extend
+    # (time is a traced scalar, not a static arg).  The frame must extend
     # past the square SDF edge for the rotation to be visible.
     a = np.asarray(blob(320, 8, 0.0))
     b = np.asarray(blob(320, 8, 0.9))

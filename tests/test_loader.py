@@ -1,7 +1,7 @@
 """Content loading tests: OBJ/MTL parsing, per-material grouping, normals/
-tangents, BMP textures — against the known stats of the reference's
-Content meshes (SURVEY.md §4: suzanne 7830v/15488f, f16 4056f/2 materials,
-bunny 34817v/69630f)."""
+tangents, BMP textures — on content written from seeded meshes in the
+reference's `Content/` layout (`helpers.write_content`: one plain mesh,
+a two-material textured mesh, a zipped mesh)."""
 
 import os
 import tempfile
@@ -23,7 +23,7 @@ from raytracercuda_tpu.models.scene import Scene
 from raytracercuda_tpu.utils import content
 from raytracercuda_tpu.utils.bmp import read_bmp
 
-HAVE_CONTENT = content.content_dir() is not None
+from helpers import BUNNY_FACES, F16_FACES, SUZANNE_FACES
 
 
 def test_parse_simple_obj():
@@ -79,28 +79,25 @@ def test_compute_normals_flat_quad():
     assert np.allclose(n, [[0, 0, 1]] * 3, atol=1e-6)
 
 
-@pytest.mark.skipif(not HAVE_CONTENT, reason="reference content not present")
-def test_load_suzanne():
+def test_load_suzanne(content_dir):
     path = content.find("suzanne.obj")
     assert path
     scene = Scene.create()
     assert load_model(path, scene)
     data = scene.data()
-    # SURVEY.md: suzanne has 15,488 faces.
-    assert data.faces.shape[0] == 15488
-    assert data.positions.shape[0] > 7000
+    assert data.faces.shape[0] == SUZANNE_FACES
+    assert data.positions.shape[0] > SUZANNE_FACES // 2
     m = scene.meshes[0]
     assert m.vertex_data(VERTEX_DATA_NORMAL) is not None
 
 
-@pytest.mark.skipif(not HAVE_CONTENT, reason="reference content not present")
-def test_load_f16_two_materials_and_textures():
+def test_load_f16_two_materials_and_textures(content_dir):
     path = content.find("f16.obj")
     assert path
     scene = Scene.create()
     assert load_model(path, scene)
     data = scene.data()
-    assert data.faces.shape[0] == 4056  # SURVEY.md §4 fixture stats
+    assert data.faces.shape[0] == sum(F16_FACES)
     # Two material groups -> two meshes, each textured.
     assert len(scene.meshes) == 2
     assert len(scene.textures) == 2
@@ -111,17 +108,16 @@ def test_load_f16_two_materials_and_textures():
     assert tex.shape[0] >= 2 and tex.shape[-1] == 3
 
 
-@pytest.mark.skipif(not HAVE_CONTENT, reason="reference content not present")
-def test_load_bunny_from_zip():
+def test_load_bunny_from_zip(content_dir):
     path = content.find("bunny.obj")
     assert path, "bunny.zip extraction failed"
+    assert not path.startswith(content_dir)  # extracted into the cache
     data = parse_obj(path)
     total_faces = sum(g[1].shape[0] for g in data.groups)
-    assert total_faces == 69630  # SURVEY.md §4
+    assert total_faces == BUNNY_FACES
 
 
-@pytest.mark.skipif(not HAVE_CONTENT, reason="reference content not present")
-def test_read_bmp_textures():
+def test_read_bmp_textures(content_dir):
     for name in ("F16s.bmp", "F16t.bmp"):
         p = content.find(name)
         assert p

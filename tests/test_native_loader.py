@@ -1,5 +1,5 @@
 """Native C++ OBJ parser vs the pure-Python parser: identical output on
-synthetic and Content meshes."""
+synthetic meshes and content written from seeded meshes."""
 
 import os
 import tempfile
@@ -10,6 +10,8 @@ import pytest
 from raytracercuda_tpu.models import loader
 from raytracercuda_tpu.native import native_loader
 from raytracercuda_tpu.utils import content
+
+from helpers import BUNNY_FACES
 
 NATIVE_OK = native_loader._load() is not None
 pytestmark = pytest.mark.skipif(not NATIVE_OK, reason="native lib unavailable")
@@ -71,13 +73,11 @@ f 1 2 3
         os.unlink(path)
 
 
-@pytest.mark.skipif(content.content_dir() is None, reason="no content")
-def test_native_matches_python_f16():
+def test_native_matches_python_f16(content_dir):
     _assert_same(content.find("f16.obj"))
 
 
-@pytest.mark.skipif(content.content_dir() is None, reason="no content")
-def test_native_bunny_stats():
+def test_native_bunny_stats(content_dir):
     path = content.find("bunny.obj")
     data = loader.parse_obj(path)
-    assert sum(g[1].shape[0] for g in data.groups) == 69630
+    assert sum(g[1].shape[0] for g in data.groups) == BUNNY_FACES

@@ -10,10 +10,8 @@ from raytracercuda_tpu.utils import content
 
 
 @pytest.mark.slow
-def test_cli_parity_frame(tmp_path):
+def test_cli_parity_frame(tmp_path, content_dir):
     model = content.find("suzanne.obj")
-    if model is None:
-        pytest.skip("content cache unavailable")
     rc = main([model, "-o", str(tmp_path), "--size", "64", "--accel",
                "cluster", "--shading", "parity"])
     assert rc == 0
@@ -21,12 +19,10 @@ def test_cli_parity_frame(tmp_path):
 
 
 @pytest.mark.slow
-def test_cli_frame_renderer_path(tmp_path):
+def test_cli_frame_renderer_path(tmp_path, content_dir):
     """--shading lambert-shadow with cluster accel routes through
     FrameRenderer (the bench's product path)."""
     model = content.find("suzanne.obj")
-    if model is None:
-        pytest.skip("content cache unavailable")
     rc = main([model, "-o", str(tmp_path), "--size", "64", "--accel",
                "cluster", "--shading", "lambert-shadow", "--frames", "2",
                "--orbit", "15"])
